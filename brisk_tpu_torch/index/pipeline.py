@@ -1,0 +1,134 @@
+"""The k <= 32 windowed insert program (port of brisk_tpu.index.pipeline,
+the flat-transport subset).
+
+One flush ships ONE contiguous packed chunk; the overlapping window lanes
+are built on the device by reshape/concat (no gather), each batch of the
+stack is enumerated, certified, segmented into compacted super-k-mer rows
+and appended densely to the arena at the device row offset — no host
+read inside a flush.
+"""
+
+import torch
+
+from brisk_tpu_torch._u32 import INVALID, to_i32
+from brisk_tpu_torch.index import sklstore
+from brisk_tpu_torch.ops import enumerate as enum_ops
+from brisk_tpu_torch.ops.minimizer import MinimizerState
+
+
+def zero_chain(device="cpu"):
+    """Initial window-continuity chain carry: (predecessor end state of
+    the LAST lane processed so far — MinimizerState of 0-dim tensors —
+    and whether that state is exact)."""
+    z = torch.zeros((), dtype=torch.int64, device=device)
+    f = torch.zeros((), dtype=torch.bool, device=device)
+    return MinimizerState(z, z, z, f, z, z, z), f
+
+
+def _chain_exact(em, end: MinimizerState, vs_i: torch.Tensor, chain,
+                 margin: int):
+    """End-state EQUALITY certificate chained across lanes: lane j is
+    exact iff em.cert holds (u_j), or its replayed state at valid_start-1
+    equals lane j-1's end state (q_j) and lane j-1 is exact:
+
+        exact_j = u_j | (q_j & exact_{j-1}),  exact_{-1} = prev_exact.
+
+    With a = the last index <= j where u holds and c = the last index
+    <= j where q fails (-1 if none), exact_j = (a >= max(c, 0)) |
+    (c < 0 & prev_exact): two cummax passes, no loop over lanes.
+    Returns (exact (B,) bool, new_chain)."""
+    prev_end, prev_exact = chain
+    pred = MinimizerState(*(torch.cat([c.reshape(1).to(e.dtype), e[:-1]])
+                            for c, e in zip(prev_end, end)))
+    eq = torch.ones_like(em.cert)
+    for a, p in zip(em.replay, pred):
+        eq = eq & (a == p)
+    u = em.cert
+    q = eq & (vs_i != margin)  # window-0 lanes certify via u alone
+    idx = torch.arange(u.shape[0], device=u.device)
+    a = torch.cummax(torch.where(u, idx, -1), 0).values
+    c = torch.cummax(torch.where(q, -1, idx), 0).values
+    exact = ((a >= c) & (a >= 0)) | ((c < 0) & prev_exact)
+    new_chain = (MinimizerState(*(e[-1] for e in end)), exact[-1])
+    return exact, new_chain
+
+
+def _unpack4_device(codes4: torch.Tensor, l_buf: int) -> torch.Tensor:
+    """Packed (B, L4) uint8 (4 bases/byte, first base in the low bits)
+    -> (B, l_buf) int64 2-bit codes."""
+    c = codes4.to(torch.int64)
+    un = torch.stack([c & 3, (c >> 2) & 3, (c >> 4) & 3, (c >> 6) & 3],
+                     dim=-1)
+    return un.reshape(c.shape[0], -1)[:, :l_buf]
+
+
+def _skl_window_scan(skl, codes: torch.Tensor, valid_start: torch.Tensor,
+                     valid_end: torch.Tensor, chain,
+                     k: int, m: int, b: int, row_cap: int, l_buf: int):
+    """Insert a stack of window batches: codes (S, B, l_buf4) packed.
+    Returns (skl', n_sk, n_km, flags (S, B) uint8 [bit0 = certified,
+    bit1 = skl row overflow], ends (MinimizerState of (S, B) leaves),
+    n_rows_after, chain')."""
+    S, B, _ = codes.shape
+    margin = k - 1
+    dev = codes.device
+    fresh = torch.ones(B, dtype=torch.bool, device=dev)
+    zero = enum_ops.zero_carry(B, dev)
+    pos_out = torch.arange(margin, l_buf, device=dev)[None, :]
+    nw = skl.nucs.shape[0]
+    R = B * row_cap
+    iota = torch.arange(R, device=dev)
+    n_sk = torch.zeros((), dtype=torch.int64, device=dev)
+    n_km = torch.zeros((), dtype=torch.int64, device=dev)
+    flags, ends = [], []
+    for i in range(S):
+        vs_i, ve_i = valid_start[i], valid_end[i]
+        codes_i = _unpack4_device(codes[i], l_buf)
+        em, end = enum_ops.enumerate_batch(codes_i, fresh, ve_i, zero,
+                                           k, m, b, valid_start=vs_i)
+        exact, chain = _chain_exact(em, end, vs_i, chain, margin)
+        ok = em.valid & exact[:, None]
+        first_valid = pos_out == vs_i[:, None]
+        rb, rm, rn, ovf = sklstore.rows_from_emissions(
+            em.key, em.bucket, em.mini_idx, em.use_rc, ok,
+            first_valid, em.boundary, k, m, b, row_cap)
+        rb_f = rb.reshape(R)
+        live = rb_f != INVALID
+        # live-first stable order (genome order kept within the flush)
+        order = torch.sort(torch.where(live, iota, INVALID),
+                           stable=True).indices
+        skl = sklstore.append_n(skl, to_i32(rb_f[order]),
+                                to_i32(rm.reshape(R)[order]),
+                                to_i32(rn.reshape(nw, R)[:, order]),
+                                live.sum())
+        n_sk = n_sk + (em.boundary & ok).sum()
+        n_km = n_km + ok.sum()
+        flags.append(exact.to(torch.uint8) | (ovf.to(torch.uint8) << 1))
+        ends.append(end)
+    ends = MinimizerState(*(torch.stack(f) for f in zip(*ends)))
+    return (skl, n_sk, n_km, torch.stack(flags), ends,
+            skl.n_rows.clone(), chain)
+
+
+def insert_flat_sklnative(skl, chunk4: torch.Tensor,
+                          valid_start: torch.Tensor,
+                          valid_end: torch.Tensor, chain,
+                          k: int, m: int, b: int,
+                          row_cap: int, l_buf: int, useful: int):
+    """THE product insert program (k <= 32). chunk4: ((S*B + ext) *
+    useful4,) uint8 packed codes with window j of the flush at byte
+    offset j*useful4 (io.windows.WindowPacker.pack_flat); valid_start,
+    valid_end (S, B). The overlapping l_buf4-wide windows are `nparts`
+    statically shifted row slices of the useful4-wide chunk rows,
+    concatenated along the byte axis. Returns the _skl_window_scan
+    tuple. Precondition: skl.n_rows + S*B*row_cap <= rcap."""
+    S, B = valid_start.shape
+    SB = S * B
+    u4 = useful // 4
+    lb4 = -(-l_buf // 4)
+    nparts = -(-lb4 // u4)
+    rows = chunk4.reshape(SB + nparts - 1, u4)
+    win4 = torch.cat([rows[s:s + SB] for s in range(nparts)], dim=1)[:, :lb4]
+    codes = win4.reshape(S, B, lb4)
+    return _skl_window_scan(skl, codes, valid_start, valid_end, chain,
+                            k, m, b, row_cap, l_buf)

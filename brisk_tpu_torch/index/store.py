@@ -1,0 +1,134 @@
+"""Packed per-k-mer keys and the transient sorted per-k-mer view (port of
+brisk_tpu.index.store, the subset the counter path uses).
+
+A packed key is the bit-field concatenation
+    bucket(2b bits) | hashed_kmer(2k bits) | mini_idx(8 bits)
+laid out big-endian over W = key_words(k, b) u32 words, so word-wise
+lexicographic order equals (bucket, hashed kmer, mini_idx) order. One
+spare top bit is always reserved, so the all-ones INVALID word is
+unreachable by a real key. Keys are stored as int32 bit patterns.
+"""
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from brisk_tpu_torch._u32 import INVALID, M32, lexsort, to_u32
+
+
+def key_words(k: int, b: int) -> int:
+    """#u32 words of a packed key: bucket(2b) | kmer(2k) | mini_idx(8),
+    plus one reserved top bit (INVALID sentinel headroom)."""
+    return -(-(2 * b + 2 * k + 8 + 1) // 32)
+
+
+class IndexState(NamedTuple):
+    keys: torch.Tensor   # (W, cap) int32 packed keys (big-endian words)
+    data: torch.Tensor   # (cap,) int64 counts
+    n_sorted: int        # keys[:, :n_sorted] sorted (duplicates adjacent)
+    n_used: int
+
+
+def _deposit(limbs, word, bitpos: int):
+    """OR (word << bitpos) into little-endian u32 limbs (static bitpos)."""
+    n = len(limbs)
+    out = list(limbs)
+    w, bit = divmod(bitpos, 32)
+    if w < n:
+        out[w] = out[w] | (((word << bit) & M32) if bit else word)
+    if bit and w + 1 < n:
+        out[w + 1] = out[w + 1] | (word >> (32 - bit))
+    return out
+
+
+def make_key_words(bucket: torch.Tensor, key_limbs, mini_idx: torch.Tensor,
+                   k: int, b: int) -> list:
+    """Big-endian LIST of W int64 u32 word tensors (key_limbs: a (4, N)
+    tensor or a 4-tuple of u32 limbs)."""
+    W = key_words(k, b)
+    words = [torch.zeros_like(bucket)] * W  # little-endian while building
+    words = _deposit(words, mini_idx, 0)
+    for j in range(4):
+        if 32 * j < 2 * k:
+            words = _deposit(words, key_limbs[j], 8 + 32 * j)
+    words = _deposit(words, bucket, 8 + 2 * k)
+    return words[::-1]
+
+
+def make_keys(bucket, key_limbs, mini_idx, k: int, b: int) -> torch.Tensor:
+    """(W, N) int64 u32 big-endian key words."""
+    return torch.stack(make_key_words(bucket, key_limbs, mini_idx, k, b))
+
+
+def unpack_keys_np(keys: np.ndarray, k: int, b: int):
+    """Host-side vectorized unpack of (W, N) uint32 packed keys ->
+    (bucket u32, hashed kmer (hi, lo) u64 pairs, mini_idx u32)."""
+    W = keys.shape[0]
+    le = keys[::-1].astype(np.uint64)
+    mini_idx = (le[0] & np.uint64(0xFF)).astype(np.uint32)
+
+    def bits(lo_bit: int, width: int) -> np.ndarray:
+        out = np.zeros(keys.shape[1], dtype=np.uint64)
+        for w in range(W):
+            base = 32 * w
+            if base + 32 <= lo_bit or base >= lo_bit + width:
+                continue
+            word = le[w]
+            if base >= lo_bit:
+                out |= word << np.uint64(base - lo_bit)
+            else:
+                out |= word >> np.uint64(lo_bit - base)
+        if width < 64:
+            out &= np.uint64((1 << width) - 1)
+        return out
+
+    kmer_lo = bits(8, min(64, 2 * k))
+    kmer_hi = bits(72, max(0, 2 * k - 64)) if 2 * k > 64 else \
+        np.zeros(keys.shape[1], dtype=np.uint64)
+    bucket = bits(8 + 2 * k, 2 * b).astype(np.uint32)
+    return bucket, kmer_hi, kmer_lo, mini_idx
+
+
+def _lex_sort(keys: torch.Tensor, *payloads):
+    """Sort the columns of (W, N) keys lexicographically (stable),
+    carrying payloads. Returns (sorted keys, tuple of payloads)."""
+    perm = lexsort([keys[i] for i in range(keys.shape[0])])
+    return keys[:, perm], tuple(p[perm] for p in payloads)
+
+
+def _first_of_runs(keys: torch.Tensor) -> torch.Tensor:
+    """Column starts a run of equal keys (along the last dim)."""
+    first = torch.zeros(keys.shape[1:], dtype=torch.bool,
+                        device=keys.device)
+    first[..., 0] = True
+    first[..., 1:] |= torch.any(keys[..., 1:] != keys[..., :-1], dim=0)
+    return first
+
+
+def _reverse_cummin(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    return torch.flip(torch.cummin(torch.flip(x, [dim]), dim).values, [dim])
+
+
+def compact_fast(state: IndexState) -> IndexState:
+    """Sort + consolidate duplicate counts WITHOUT compressing: each
+    duplicate run's total lands on its FIRST column; later duplicates
+    stay in place as zero-data columns. keys[:, :n_sorted] are sorted;
+    readers treat data == 0 columns as dead."""
+    cap = state.keys.shape[1]
+    dev = state.keys.device
+    in_use = torch.arange(cap, device=dev) < state.n_used
+    keys = torch.where(in_use[None, :], state.keys, -1)
+    data = torch.where(in_use, state.data, 0)
+    keys, (data,) = _lex_sort(keys, data)
+    first = _first_of_runs(keys)
+    valid = to_u32(keys[0]) != INVALID
+    csum = torch.cumsum(data, 0)
+    is_last = torch.ones_like(first)
+    is_last[:-1] = first[1:]
+    last_csum = _reverse_cummin(
+        torch.where(is_last, csum, torch.iinfo(torch.int64).max))
+    totals = torch.where(first & valid, last_csum - (csum - data), 0)
+    n_valid = int(valid.sum())
+    return IndexState(keys, totals, n_valid, n_valid)
+
