@@ -1,22 +1,27 @@
-"""User-facing Brisk API on PyTorch (port of brisk_tpu.api, the k <= 32
-counter main path).
+"""User-facing Brisk API on PyTorch (port of brisk_tpu.api, the
+single-device index).
 
     Brisk(params, batch, window, stack, device)
-    warmup / insert_file / insert_sequence      windowed flat transport
-    finalize                                    fresh-span consolidation
+    warmup / insert_file / insert_sequence      k <= 32: windowed flat
+                                                transport; k > 32: one
+                                                record per lane, streamed
+    finalize / consolidate                      span consolidation and
+                                                whole-arena maintenance
     get / get_many / get_canonical / query_file / items / counts_dict /
     stats / skl_stats                           serving
-    Brisk.load(path, device=...)                the JAX package's .npz
+    reallocate                                  m += 2, b += 2 re-key
+    save / Brisk.load(path, device=...)         .npz checkpoints, the
+                                                same keys as brisk_tpu's
 
 The compacted super-k-mer arena (index.sklstore) is the backing store:
 inserts append rows, `finalize()` (run lazily before any read)
 consolidates duplicate k-mer counts, scalar gets probe one bucket's rows
 from a host copy, batch queries run a sort-merge join against a
-transient expansion.
+transient expansion. KFF export is io.kff.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-k > 32 streaming insert, consolidate / consolidate_all, reallocate,
-save (and the KFF export), payloads and the sharded facade.
+Not ported yet (ROADMAP §1): the generic payload API (brisk_tpu.data_api)
+and the sharded facade (brisk_tpu.parallel); the port has no module for
+either.
 """
 
 import os
@@ -29,7 +34,7 @@ import torch
 
 from brisk_tpu_torch import _u32, kernels
 from brisk_tpu_torch.index import pipeline, readout, sklstore, store
-from brisk_tpu_torch.io import windows
+from brisk_tpu_torch.io import fasta, windows
 from brisk_tpu_torch.oracle import pyref
 from brisk_tpu_torch.ops import enumerate as enum_ops
 from brisk_tpu_torch.params import Parameters
@@ -37,19 +42,16 @@ from brisk_tpu_torch.params import Parameters
 _INFLIGHT_BYTES = 256 << 20  # host bytes pinned by un-retired flushes
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to brisk_tpu_torch yet (ROADMAP: {item})")
-
-
 class Brisk:
     """Dynamic k-mer -> count index with batched insert/query.
 
-    Records are split into overlapping windows (io.windows) spread over
-    all lanes, a stack of `stack` batches is inserted per flush
-    (pipeline.insert_flat_sklnative), and the rare windows whose warm-up
-    replay failed the re-sync certificate are re-run exactly through the
-    streaming carry path (_retire)."""
+    For k <= 32, records are split into overlapping windows (io.windows)
+    spread over all lanes, a stack of `stack` batches is inserted per
+    flush (pipeline.insert_flat_sklnative), and the rare windows whose
+    warm-up replay failed the re-sync certificate are re-run exactly
+    through the streaming carry path (_retire). For k > 32 one record
+    rides one lane with the exact carry (pipeline.insert_stream_sklnative)
+    and nothing repairs."""
 
     def __init__(self, params: Parameters, batch: int = 512,
                  window: int = 512, stack: int = 8, device="cpu"):
@@ -113,11 +115,27 @@ class Brisk:
         self.skl = sklstore.ensure_room(
             self.skl, max(0, est - int(self.skl.n_rows)))
 
-    def warmup(self, n_bases_estimate: int = 0, path: str = None) -> None:
-        """Pay set-up before the first request: presize the arena, build
-        the CUDA kernels (on a CUDA device) and the native parser, and
-        prefetch-parse `path` in a background thread. Eager PyTorch has
-        no programs to compile ahead."""
+    def _stream_geometry(self, rec_len=None) -> fasta.BatchPacker:
+        """Lane geometry for the k > 32 streaming path. One record rides
+        one lane, so l_new follows the record-length profile (quantized
+        to 64) to keep short-read lanes full; long records still stream
+        across batches in the same lane."""
+        p = self.params
+        if rec_len is None:
+            l_new = self.window
+        else:
+            l_new = min(self.window,
+                        max(64, -(-(rec_len - (p.k - 1)) // 64) * 64))
+        return fasta.BatchPacker(p.k, self.batch, l_new)
+
+    def warmup(self, n_bases_estimate: int = 0,
+               record_len_hint: int = None, path: str = None) -> None:
+        """Pay set-up before the first request: presize the arena (for
+        k > 32 also room for one streaming flush at the lane geometry
+        `record_len_hint` predicts), build the CUDA kernels (on a CUDA
+        device) and the native parser, and prefetch-parse `path` in a
+        background thread. Eager PyTorch has no programs to compile
+        ahead."""
         from brisk_tpu_torch import native
         if path is not None and not n_bases_estimate:
             try:
@@ -126,6 +144,10 @@ class Brisk:
                 pass
         if n_bases_estimate:
             self._presize_for(n_bases_estimate)
+        if self.params.k > 32:
+            l_new = self._stream_geometry(record_len_hint).l_new
+            self.skl = sklstore.ensure_room(
+                self.skl, self.stack * self.batch * l_new)
         if self.device.type == "cuda":
             kernels.build()
         native.load()
@@ -156,11 +178,12 @@ class Brisk:
     def _insert_windowed(self, records) -> None:
         """FLAT transport: a producer thread runs pack_flat and stages the
         packed chunk on the device; the device builds the overlapping
-        window lanes itself."""
+        window lanes itself. k > 32 takes the exact streaming path
+        instead (the truncation quirk starves the windowed certificate)."""
         import queue
         if self.params.k > 32:
-            _not_ported("k > 32 streaming insert (_insert_streaming)",
-                        "k > 32 streaming")
+            self._insert_streaming(records)
+            return
         self._drain()
         p = self.params
         packer = windows.WindowPacker(p.k, p.m, self.batch,
@@ -195,6 +218,102 @@ class Brisk:
         t.join()
         if err:
             raise err[0]
+
+    def _insert_streaming(self, records) -> None:
+        """k > 32: one record per lane, exact device-resident carry
+        across batches and flushes, fused row appends; no certificates
+        and no repairs. The lane length follows the p90 record length."""
+        p = self.params
+        records = list(records)
+        lens = sorted(len(r) for r in records if len(r) >= p.k)
+        rec_len = lens[max(0, int(0.9 * len(lens)) - 1)] if lens else None
+        packer = self._stream_geometry(rec_len)
+        if rec_len is not None and rec_len <= packer.l_buf:
+            # short-read fast path: records that fit one lane buffer are
+            # laid out with one vectorized fancy-index store per batch
+            # instead of BatchPacker's per-record lane loop
+            shorts, longs = [], []
+            for r in records:
+                if len(r) < p.k:
+                    continue
+                if isinstance(r, str):
+                    r = fasta.chunk_codes(r)
+                (shorts if len(r) <= packer.l_buf else longs).append(r)
+
+            def batches():
+                B, l_buf = self.batch, packer.l_buf
+                if shorts:
+                    slens = np.array([len(r) for r in shorts],
+                                     dtype=np.int64)
+                    flat = np.concatenate(shorts)
+                    starts = np.zeros(len(shorts) + 1, dtype=np.int64)
+                    np.cumsum(slens, out=starts[1:])
+                    for g0 in range(0, len(shorts), B):
+                        g1 = min(g0 + B, len(shorts))
+                        lg = slens[g0:g1]
+                        codes = np.zeros((B, l_buf), dtype=np.uint8)
+                        lane = np.repeat(
+                            np.arange(g1 - g0, dtype=np.int64), lg)
+                        within = (np.arange(int(lg.sum()), dtype=np.int64)
+                                  - np.repeat(starts[g0:g1] - starts[g0],
+                                              lg))
+                        codes.reshape(-1)[lane * l_buf + within] = \
+                            flat[starts[g0]:starts[g1]]
+                        ve = np.zeros(B, dtype=np.int32)
+                        ve[:g1 - g0] = lg
+                        yield fasta.Batch(codes, np.ones(B, dtype=bool),
+                                          ve, int((lg - p.k + 1).sum()))
+                if longs:
+                    yield from packer.pack(iter(longs))
+
+            self._insert_stream_batches(packer, batches())
+            return
+        self._insert_stream_batches(packer, packer.pack(iter(records)))
+
+    def _insert_stream_batches(self, packer, batch_iter) -> None:
+        """Flush an iterator of fasta.Batch through the streaming program,
+        a stack of `stack` batches per flush (the tail padded with fresh
+        empty lanes)."""
+        p = self.params
+        S, B = self.stack, self.batch
+        row_cap = packer.l_new  # full width: segmentation cannot overflow
+        dev = self.device
+        carry = enum_ops.zero_carry(B, dev)
+        flush_rows = S * B * row_cap
+
+        def flush(batches):
+            nonlocal carry
+            if self._rows_ub + flush_rows > self.skl.bucket.shape[0]:
+                self._settle_counts()
+                self._rows_ub = int(self.skl.n_rows)
+                self.skl = sklstore.ensure_room(self.skl, flush_rows)
+
+            def stacked(field):
+                return torch.from_numpy(np.stack(
+                    [getattr(bt, field) for bt in batches])).to(dev)
+
+            (self.skl, n_sk, n_km, carry,
+             _) = pipeline.insert_stream_sklnative(
+                self.skl, stacked("codes"), stacked("fresh"),
+                stacked("valid_end"), carry, p.k, p.m, p.b, row_cap)
+            self._count_acc.append((n_sk, n_km, 0))
+            self._rows_ub += flush_rows
+            self._dirty = True
+            self._expanded = None
+
+        pending = []
+        for bt in batch_iter:
+            pending.append(bt)
+            if len(pending) == S:
+                flush(pending)
+                pending = []
+        if pending:
+            while len(pending) < S:
+                pending.append(fasta.Batch(
+                    np.zeros((B, packer.l_buf), np.uint8),
+                    np.ones(B, dtype=bool), np.zeros(B, np.int32), 0))
+            flush(pending)
+        self._drain()
 
     def _dispatch_flush(self, packer, flush, chunk4_d, vs_d, ve_d) -> None:
         """Launch one staged flush; its bookkeeping (counters, repairs,
@@ -510,8 +629,21 @@ class Brisk:
             self.consolidate()
 
     def consolidate(self) -> None:
-        _not_ported("consolidate (merge finalize segments)",
-                     "consolidate / maintenance")
+        """Whole-arena maintenance: merge every segment into one
+        bucket-grouped run, fold cross-segment duplicate counts onto one
+        slot, drop dead rows (sklstore.consolidate_all). O(n_rows)
+        working memory; automatic under consolidate_max_rows, callable
+        any time."""
+        p = self.params
+        self._drain()
+        self.skl = sklstore.consolidate_all(self.skl, p.k, p.m, p.b)
+        nfr = int(self.skl.n_fin_rows)
+        self._skl_segments = [(0, nfr)] if nfr else []
+        self._rows_ub = nfr
+        self._n_fin_host = nfr
+        self._host_cache = None
+        self._expanded = None
+        self._dirty = False
 
     def _ensure_final(self) -> None:
         self._drain()
@@ -636,12 +768,45 @@ class Brisk:
         return sklstore.stats(self.skl, p.k, p.m, p.b)
 
     def reallocate(self) -> None:
-        _not_ported("reallocate (m += 2, b += 2 re-key)", "reallocate")
+        """Grow minimizer/bucket space: m += 2, b += 2, re-key every
+        stored entry under the new minimizer decomposition (reference
+        Brisk::reallocate, Brisk.hpp:202-224). As in brisk_tpu, b is
+        clamped at 15 (the routing tables are sized 4^b); counts and
+        lookups stay exact."""
+        from brisk_tpu_torch.index import rekey
+        new_params = Parameters(k=self.params.k, m=self.params.m + 2,
+                                b=min(self.params.b + 2, 15))
+        old = self._expanded_view()
+        new_state = rekey.reindex(old, self.params, new_params)
+        # super-k-mer grouping is invalid under the new (m, b): one
+        # size-1 row per entry, in packed-key (bucket-major) order
+        self.skl = sklstore.from_entries(new_state, new_params.k,
+                                         new_params.m, new_params.b)
+        self._expanded = None
+        self._rows_ub = int(self.skl.n_rows)
+        self._n_fin_host = int(self.skl.n_fin_rows)
+        self._skl_segments = [(0, self._n_fin_host)]
+        self._host_cache = None
+        self.params = new_params
 
     # -- persistence -------------------------------------------------------
 
     def save(self, path: str) -> None:
-        _not_ported("save (and the KFF export)", "counter app / save / KFF")
+        """Native checkpoint: the arena columns as uint32 and the params,
+        under brisk_tpu's .npz keys (brisk_tpu.api.Brisk.load reads it)."""
+        self._ensure_final()
+        cols = sklstore.to_numpy(self.skl)
+        np.savez_compressed(
+            path,
+            k=self.params.k, m=self.params.m, b=self.params.b,
+            n_emitted=self.n_emitted, n_superkmers=self.n_superkmers,
+            skl_bucket=cols["bucket"], skl_meta=cols["meta"],
+            skl_nucs=cols["nucs"], skl_data=cols["data"],
+            skl_offs=cols["offs"],
+            skl_n=np.array([cols["n_rows"], cols["n_fin_rows"],
+                            cols["n_fin_kmers"]]),
+            skl_segments=np.asarray(self._skl_segments,
+                                    dtype=np.int64).reshape(-1, 2))
 
     @classmethod
     def load(cls, path: str, batch: int = 512, window: int = 512,

@@ -1,11 +1,15 @@
-"""The k <= 32 windowed insert program (port of brisk_tpu.index.pipeline,
-the flat-transport subset).
+"""The insert programs (port of brisk_tpu.index.pipeline: the k <= 32
+flat windowed program and the k > 32 streaming program).
 
-One flush ships ONE contiguous packed chunk; the overlapping window lanes
-are built on the device by reshape/concat (no gather), each batch of the
-stack is enumerated, certified, segmented into compacted super-k-mer rows
-and appended densely to the arena at the device row offset — no host
-read inside a flush.
+k <= 32: one flush ships ONE contiguous packed chunk; the overlapping
+window lanes are built on the device by reshape/concat (no gather), each
+batch of the stack is enumerated, certified, segmented into compacted
+super-k-mer rows and appended densely to the arena at the device row
+offset — no host read inside a flush.
+
+k > 32: one record per lane with the exact minimizer carry across
+batches (insert_stream_sklnative); the same row segmentation and dense
+append.
 """
 
 import torch
@@ -132,3 +136,46 @@ def insert_flat_sklnative(skl, chunk4: torch.Tensor,
     codes = win4.reshape(S, B, lb4)
     return _skl_window_scan(skl, codes, valid_start, valid_end, chain,
                             k, m, b, row_cap, l_buf)
+
+
+def insert_stream_sklnative(skl, codes: torch.Tensor, fresh: torch.Tensor,
+                            valid_end: torch.Tensor, carry: MinimizerState,
+                            k: int, m: int, b: int, row_cap: int):
+    """THE k > 32 insert program: one RECORD per lane with the exact
+    streaming carry across batches and flushes, so it needs no
+    certificate and repairs nothing. codes (S, B, L_buf) unpacked 2-bit
+    codes; fresh, valid_end (S, B); carry a MinimizerState of (B,)
+    leaves. Every lane's first valid emission starts a row (rows split
+    at batch seams; content and counts are unaffected). n_sk adds one
+    super-k-mer per fresh non-empty lane. Returns (skl', n_sk, n_km,
+    carry', n_rows_after). Precondition: skl.n_rows + S*B*row_cap <=
+    rcap."""
+    S, B, L_buf = codes.shape
+    margin = k - 1
+    dev = codes.device
+    nw = skl.nucs.shape[0]
+    R = B * row_cap
+    iota = torch.arange(R, device=dev)
+    first_valid = (torch.arange(margin, L_buf, device=dev) == margin
+                   ).expand(B, L_buf - margin)
+    n_sk = torch.zeros((), dtype=torch.int64, device=dev)
+    n_km = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(S):
+        fresh_i, ve_i = fresh[i], valid_end[i]
+        em, carry = enum_ops.enumerate_batch(codes[i], fresh_i, ve_i, carry,
+                                             k, m, b)
+        rb, rm, rn, _ = sklstore.rows_from_emissions(
+            em.key, em.bucket, em.mini_idx, em.use_rc, em.valid,
+            first_valid, em.boundary, k, m, b, row_cap)
+        rb_f = rb.reshape(R)
+        live = rb_f != INVALID
+        order = torch.sort(torch.where(live, iota, INVALID),
+                           stable=True).indices
+        skl = sklstore.append_n(skl, to_i32(rb_f[order]),
+                                to_i32(rm.reshape(R)[order]),
+                                to_i32(rn.reshape(nw, R)[:, order]),
+                                live.sum())
+        n_sk = n_sk + (em.boundary & em.valid).sum() + (fresh_i
+                                                        & (ve_i > 0)).sum()
+        n_km = n_km + em.valid.sum()
+    return skl, n_sk, n_km, carry, skl.n_rows.clone()

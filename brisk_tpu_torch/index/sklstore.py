@@ -1,5 +1,5 @@
 """Compacted super-k-mer storage — the SKL arena (port of
-brisk_tpu.index.sklstore, the subset the k <= 32 counter path runs).
+brisk_tpu.index.sklstore, the subset the single-device Brisk runs).
 
 Each super-k-mer is stored ONCE as fixed-width columns:
 
@@ -19,7 +19,10 @@ by EXPANDING them to per-k-mer packed keys (the CUDA kernel of
 the CPU), sorting in chunks and writing run totals back in a padded
 layout: row r's counts live at data[offs[r] + j] with offs[r] = r*s_max.
 Duplicates split across chunks keep partial counts; every reader sums
-per key, so totals stay exact.
+per key, so totals stay exact. `consolidate_all` re-consolidates the
+whole arena with the counts carried (merging duplicates across
+segments onto one slot, dropping dead rows); `from_entries` rebuilds an
+arena of size-1 rows from a per-k-mer state (after reallocate).
 """
 
 from typing import NamedTuple, Tuple
@@ -242,8 +245,10 @@ def _consolidate_chunked(keys: torch.Tensor, cnt, S2: int,
                          cw_cap: int = 1 << 18) -> torch.Tensor:
     """Chunked consolidation: per-chunk stable key sort, run totals at
     run firsts, scattered back to the ORIGINAL slot order. keys (W, S2)
-    int32; cnt (S2,) per-slot counts or None (fresh span: every live
-    slot counts 1). Returns (S2,) int64 totals (dead slots 0)."""
+    int32; cnt (S2,) int64 u32 per-slot counts (0 on dead slots) or None
+    (fresh span: every live slot counts 1). Returns (S2,) int64 u32
+    totals (dead slots 0). The running sum wraps mod 2^32 like the
+    reference's u32 cumsum."""
     W = keys.shape[0]
     CW = _chunk_width(S2, cw_cap)
     C = S2 // CW
@@ -255,12 +260,11 @@ def _consolidate_chunked(keys: torch.Tensor, cnt, S2: int,
     else:
         s_cnt = torch.gather(cnt.reshape(C, CW), 1, perm)
     first = _first_of_runs(out)
-    csum = torch.cumsum(s_cnt, 1)
+    csum = torch.cumsum(s_cnt, 1) & M32
     is_last = torch.ones_like(first)
     is_last[:, :-1] = first[:, 1:]
-    last_csum = _reverse_cummin(
-        torch.where(is_last, csum, torch.iinfo(torch.int64).max), 1)
-    totals = torch.where(first, last_csum - (csum - s_cnt), 0)
+    last_csum = _reverse_cummin(torch.where(is_last, csum, M32), 1)
+    totals = torch.where(first, (last_csum - csum + s_cnt) & M32, 0)
     return torch.empty_like(totals).scatter_(1, perm, totals).reshape(S2)
 
 
@@ -332,11 +336,24 @@ def _expand_span(sb, sm, sn, k: int, m: int, b: int, s_max: int):
 
 
 def _finalize_span_fused(state: SklState, f: int, R_pad: int,
-                         k: int, m: int, b: int, s_max: int):
-    """Finalize the FRESH rows [f, n_rows) (span width R_pad >=
-    n_rows - f) in place: bucket-group the span's rows (stable), expand
-    to per-slot packed keys (J-major), consolidate duplicate counts in
-    chunks, write rows + padded counts + offs back at [f, f+R_pad).
+                         k: int, m: int, b: int, s_max: int,
+                         carry_counts: bool = False,
+                         drop_dead: bool = False):
+    """Finalize rows [f, n_rows) (span width R_pad >= n_rows - f) in
+    place: bucket-group the span's rows (stable), expand to per-slot
+    packed keys, consolidate duplicate counts in chunks, write rows +
+    padded counts + offs back at [f, f+R_pad).
+
+    carry_counts: span rows may already be finalized; their padded count
+    columns ride the row sort and feed the consolidation (the
+    consolidate_all path). False: every span row is fresh (count 1 per
+    live slot). The carry path runs ROW-MAJOR at the full 2^18 chunk
+    width, so all slots of neighbouring rows meet in one chunk and
+    duplicates merge onto one slot; that merge decides which rows
+    drop_dead removes. drop_dead (with carry_counts): rows whose every
+    slot total is zero move behind the live rows (stable live-first
+    partition) and die.
+
     Returns (n_live_rows, total_k_span) as device scalars."""
     S2 = R_pad * s_max
     dev = state.bucket.device
@@ -347,19 +364,38 @@ def _finalize_span_fused(state: SklState, f: int, R_pad: int,
     sb = b_t[order]
     sm = to_u32(state.meta[f:f + R_pad])[order]
     sn = state.nucs[:, f:f + R_pad][:, order]
-    live = sb != INVALID
-    n_live = live.sum()
+    n_live = (sb != INVALID).sum()
     sb32, sm32 = to_i32(sb), to_i32(sm)
 
-    keys_jm = _expand_span_jmajor(sb32, sm32, sn, k, m, b, s_max)
-    # fresh spans: small chunks; split counts are exact under sum
-    # semantics, so within-span merge quality does not matter here
-    totals_jm = _consolidate_chunked(keys_jm, None, S2, cw_cap=1 << 12)
-    # back to row-major slots r*s_max + j (the reference's
-    # _interleave_cols)
-    totals = totals_jm.reshape(s_max, R_pad).t().reshape(S2)
+    if carry_counts:
+        keys, ok = _expand_span(sb32, sm32, sn, k, m, b, s_max)
+        d_t = to_u32(state.data[f * s_max:f * s_max + S2])
+        scnt = torch.where(ok, d_t.reshape(R_pad, s_max)[order].reshape(S2),
+                           0)
+        totals = _consolidate_chunked(keys, scnt, S2)
+    else:
+        keys_jm = _expand_span_jmajor(sb32, sm32, sn, k, m, b, s_max)
+        # fresh spans: small chunks; split counts are exact under sum
+        # semantics, so within-span merge quality does not matter here
+        totals_jm = _consolidate_chunked(keys_jm, None, S2, cw_cap=1 << 12)
+        # back to row-major slots r*s_max + j (the reference's
+        # _interleave_cols)
+        totals = totals_jm.reshape(s_max, R_pad).t().reshape(S2)
 
-    sizes = torch.where(live, sm & 0xFF, 0)
+    if drop_dead:
+        tcols = totals.reshape(R_pad, s_max)
+        row_alive = (sb != INVALID) & (tcols > 0).any(dim=1)
+        part = torch.sort(torch.where(row_alive, iota, INVALID),
+                          stable=True).indices
+        alive_s = row_alive[part]
+        sb = torch.where(alive_s, sb[part], INVALID)
+        sm = sm[part]
+        sn = sn[:, part]
+        totals = torch.where(alive_s[:, None], tcols[part], 0).reshape(S2)
+        n_live = alive_s.sum()
+        sb32, sm32 = to_i32(sb), to_i32(sm)
+
+    sizes = torch.where(sb != INVALID, sm & 0xFF, 0)
     total_k = sizes.sum()
     state.bucket[f:f + R_pad] = sb32
     state.meta[f:f + R_pad] = sm32
@@ -420,9 +456,24 @@ def finalize_device(state: SklState, k: int, m: int, b: int) -> SklState:
 
 
 def consolidate_all(state: SklState, k: int, m: int, b: int) -> SklState:
-    raise NotImplementedError(
-        "consolidate_all (whole-arena merge of finalize segments) is not "
-        "ported yet: ROADMAP 'consolidate / maintenance'")
+    """Whole-arena maintenance: re-consolidates EVERY row into one
+    bucket-grouped segment, merges cross-segment duplicate counts onto
+    one slot and drops dead rows. O(N) memory."""
+    cs, s_max, nt_max, nw = skl_dims(k, m, b)
+    dev = state.bucket.device
+    F, N = int(state.n_fin_rows), int(state.n_rows)
+    if N == 0:
+        return empty(state.bucket.shape[0], state.data.shape[0], nw, dev)
+    if F != N:
+        state = finalize_device(state, k, m, b)
+        N = int(state.n_rows)
+    R_pad = _shape_family(N, floor=1 << 10)
+    state = _ensure_span_caps(state, 0, R_pad, s_max)
+    n_live, total_k = _finalize_span_fused(state, 0, R_pad, k, m, b, s_max,
+                                           carry_counts=True, drop_dead=True)
+    nl, tk = int(n_live), int(total_k)
+    return state._replace(n_rows=_scalar(nl, dev), n_fin_rows=_scalar(nl, dev),
+                          n_fin_kmers=_scalar(tk, dev))
 
 
 def expand_device(state: SklState, k: int, m: int, b: int):
@@ -716,6 +767,60 @@ def query_join_total(state: SklState, qstate_box: list,
             ql = torch.cat([ql, ql.new_zeros(pad)])
         total += int(_query_join_partials(ik, icnt, qc, ql).sum())
     return total
+
+
+def _rows_from_keys(keys: torch.Tensor, k: int, m: int, b: int):
+    """Packed per-k-mer keys (W, N) -> size-1 rows (bucket, meta, nucs)
+    as int64 u32."""
+    suffix_reduc = (m - b + 1) // 2
+    cs, _, _, nw = skl_dims(k, m, b)
+    W = keys.shape[0]
+    le = tuple(to_u32(keys[W - 1 - i]) for i in range(W))
+    mini_full = le[0] & 0xFF
+    kmer_all = u128.shr(le, 8)
+    zero = torch.zeros_like(le[0])
+    kmer4 = u128.mask_bits(tuple(kmer_all[i] if i < len(kmer_all) else zero
+                                 for i in range(4)), 2 * k)
+    bucket = u128.shr(le, 8 + 2 * k)[0] & ((1 << (2 * b)) - 1)
+
+    h = mini_full + suffix_reduc
+    sh_h = 2 * h
+    hi_part = u128.shl_var(u128.shr_var(kmer4, sh_h + 2 * b), sh_h)
+    lo_part = u128.band(kmer4, _ones_mask_var(sh_h, 4))
+    cmp4 = u128.mask_bits(u128.bor(hi_part, lo_part), 2 * cs)
+    nucs = torch.stack([cmp4[i] if i < 4 else zero for i in range(nw)])
+    meta = 1 | ((h << 8) & M32)
+    return bucket, meta, nucs
+
+
+def from_entries(state: store.IndexState, k: int, m: int, b: int,
+                 chunk: int = 1 << 20) -> SklState:
+    """Rebuild a finalized arena of size-1 rows from a compacted
+    per-k-mer IndexState on the same device (after reallocate, whose new
+    minimizer decomposition invalidates the old super-k-mer groupings).
+    Rows come out in packed-key order, so the arena is bucket-grouped."""
+    cs, s_max, nt_max, nw = skl_dims(k, m, b)
+    dev = state.keys.device
+    n = int(state.n_sorted)
+    counts = state.data[:n]
+    live = counts != 0
+    keys = state.keys[:, :n][:, live]
+    counts = counts[live]
+    n_live = keys.shape[1]
+    rcap = max(1024, 1 << max(0, (max(n_live, 1) - 1).bit_length()))
+    out = empty(rcap, _shape_family(max(1024, rcap * s_max)), nw, dev)
+    for start in range(0, n_live, chunk):
+        end = min(start + chunk, n_live)
+        bb, mm, nn = _rows_from_keys(keys[:, start:end], k, m, b)
+        out.bucket[start:end] = to_i32(bb)
+        out.meta[start:end] = to_i32(mm)
+        out.nucs[:, start:end] = to_i32(nn)
+    # padded data layout: row r's counts at data[r*s_max + j]
+    out.data[0:n_live * s_max:s_max] = to_i32(counts)
+    out.offs.copy_(to_i32(torch.arange(rcap, device=dev) * s_max))
+    nl = _scalar(n_live, dev)
+    return out._replace(n_rows=nl, n_fin_rows=nl.clone(),
+                        n_fin_kmers=nl.clone())
 
 
 def stats(state: SklState, k: int, m: int, b: int) -> dict:

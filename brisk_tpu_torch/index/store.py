@@ -1,5 +1,7 @@
-"""Packed per-k-mer keys and the transient sorted per-k-mer view (port of
-brisk_tpu.index.store, the subset the counter path uses).
+"""Packed per-k-mer keys and the per-k-mer log-structured state (port of
+brisk_tpu.index.store: the transient sorted view of the arena and the
+re-keying state of reallocate; `lookup`, `bucket_of` and `pack_key_np`
+serve the payload API and the sharded facade and come with them).
 
 A packed key is the bit-field concatenation
     bucket(2b bits) | hashed_kmer(2k bits) | mini_idx(8 bits)
@@ -14,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from brisk_tpu_torch._u32 import INVALID, M32, lexsort, to_u32
+from brisk_tpu_torch._u32 import INVALID, M32, lexsort, to_i32, to_u32
 
 
 def key_words(k: int, b: int) -> int:
@@ -28,6 +30,46 @@ class IndexState(NamedTuple):
     data: torch.Tensor   # (cap,) int64 counts
     n_sorted: int        # keys[:, :n_sorted] sorted (duplicates adjacent)
     n_used: int
+
+
+def empty(capacity: int, nkey: int, device="cpu") -> IndexState:
+    return IndexState(
+        keys=torch.full((nkey, capacity), -1, dtype=torch.int32,
+                        device=device),
+        data=torch.zeros(capacity, dtype=torch.int64, device=device),
+        n_sorted=0, n_used=0)
+
+
+def grow(state: IndexState, new_capacity: int) -> IndexState:
+    """Capacity growth: INVALID key columns and zero data appended."""
+    cap = state.keys.shape[1]
+    assert new_capacity > cap
+    pad = new_capacity - cap
+    return state._replace(
+        keys=torch.cat([state.keys, state.keys.new_full(
+            (state.keys.shape[0], pad), -1)], dim=1),
+        data=torch.cat([state.data, state.data.new_zeros(pad)]))
+
+
+def append(state: IndexState, keys: torch.Tensor, values: torch.Tensor,
+           valid: torch.Tensor) -> IndexState:
+    """Append a batch of (key, value) columns to the unsorted log, in
+    place. Invalid columns are written as INVALID tombstones with zero
+    data and still occupy log slots (ensure_room takes the RAW batch
+    width). keys (W, n) u32 words; values (n,) counts."""
+    n0, n = state.n_used, keys.shape[1]
+    state.keys[:, n0:n0 + n] = torch.where(valid[None, :], to_i32(keys), -1)
+    state.data[n0:n0 + n] = torch.where(valid, values.to(torch.int64), 0)
+    return state._replace(n_used=n0 + n)
+
+
+def ensure_room(state: IndexState, n_incoming: int) -> IndexState:
+    """Grow (double) until the log can absorb n_incoming columns."""
+    cap = state.keys.shape[1]
+    while state.n_used + n_incoming > cap:
+        cap *= 2
+        state = grow(state, cap)
+    return state
 
 
 def _deposit(limbs, word, bitpos: int):
@@ -110,25 +152,76 @@ def _reverse_cummin(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.flip(torch.cummin(torch.flip(x, [dim]), dim).values, [dim])
 
 
+def _sorted_runs(state: IndexState):
+    """The used columns lex-sorted (the rest INVALID keys with zero data),
+    with run-first / run-last masks, the valid mask and the running sum
+    of the data."""
+    cap = state.keys.shape[1]
+    in_use = torch.arange(cap, device=state.keys.device) < state.n_used
+    keys = torch.where(in_use[None, :], state.keys, -1)
+    data = torch.where(in_use, state.data, 0)
+    keys, (data,) = _lex_sort(keys, data)
+    first = _first_of_runs(keys)
+    is_last = torch.ones_like(first)
+    is_last[:-1] = first[1:]
+    valid = to_u32(keys[0]) != INVALID
+    return keys, data, first, is_last, valid, torch.cumsum(data, 0)
+
+
 def compact_fast(state: IndexState) -> IndexState:
     """Sort + consolidate duplicate counts WITHOUT compressing: each
     duplicate run's total lands on its FIRST column; later duplicates
     stay in place as zero-data columns. keys[:, :n_sorted] are sorted;
     readers treat data == 0 columns as dead."""
-    cap = state.keys.shape[1]
-    dev = state.keys.device
-    in_use = torch.arange(cap, device=dev) < state.n_used
-    keys = torch.where(in_use[None, :], state.keys, -1)
-    data = torch.where(in_use, state.data, 0)
-    keys, (data,) = _lex_sort(keys, data)
-    first = _first_of_runs(keys)
-    valid = to_u32(keys[0]) != INVALID
-    csum = torch.cumsum(data, 0)
-    is_last = torch.ones_like(first)
-    is_last[:-1] = first[1:]
+    keys, data, first, is_last, valid, csum = _sorted_runs(state)
     last_csum = _reverse_cummin(
         torch.where(is_last, csum, torch.iinfo(torch.int64).max))
     totals = torch.where(first & valid, last_csum - (csum - data), 0)
     n_valid = int(valid.sum())
     return IndexState(keys, totals, n_valid, n_valid)
+
+
+def compact(state: IndexState) -> IndexState:
+    """Global sort + duplicate segment-sum: the whole state becomes one
+    sorted, deduplicated run (key columns [0, n_unique), the rest
+    INVALID with zero data). Each run's total moves from its LAST column
+    to its FIRST by two stable packing sorts keyed on the run's rank."""
+    keys, data, first, is_last, valid, csum = _sorted_runs(state)
+    seg_base = torch.cummax(torch.where(first, csum - data, 0), 0).values
+    seg_total = torch.where(is_last, (csum - seg_base) & M32, 0)
+    seg_id = torch.cumsum(first.to(torch.int64), 0) - 1
+    big = 0x7FFFFFFF
+    keys_u = keys[:, torch.sort(torch.where(first, seg_id, big),
+                                stable=True).indices]
+    data_u = seg_total[torch.sort(torch.where(is_last, seg_id, big),
+                                  stable=True).indices]
+    n_unique = int((first & valid).sum())
+    keep = torch.arange(keys.shape[1], device=keys.device) < n_unique
+    return IndexState(torch.where(keep[None, :], keys_u, -1),
+                      torch.where(keep, data_u, 0), n_unique, n_unique)
+
+
+def _write_back(state: IndexState, sub_keys: torch.Tensor,
+                sub_data: torch.Tensor, n: int) -> IndexState:
+    """A copy of `state` with its first columns replaced by the
+    compacted prefix (the input state is left as it was)."""
+    keys = state.keys.clone()
+    data = state.data.clone()
+    keys[:, :sub_keys.shape[1]] = sub_keys
+    data[:sub_data.shape[0]] = sub_data
+    return IndexState(keys, data, n, n)
+
+
+def compact_auto(state: IndexState) -> IndexState:
+    """compact() that sorts only a power-of-two prefix covering the used
+    region instead of the whole capacity. Columns >= n_used must be
+    INVALID keys with zero data (empty/grow/append/compact keep that)."""
+    cap = state.keys.shape[1]
+    n = state.n_used
+    n2 = 1 << max(10, (max(n, 1) - 1).bit_length())
+    if n2 >= cap:
+        return compact(state)
+    sub = compact(IndexState(state.keys[:, :n2], state.data[:n2],
+                             state.n_sorted, state.n_used))
+    return _write_back(state, sub.keys, sub.data, sub.n_sorted)
 

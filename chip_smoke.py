@@ -4,8 +4,8 @@ the port builds, agrees with its references and serves end to end.
 
     python3 chip_smoke.py
 
-Phases (each prints its own line; any failure raises, so the exit code is
-non-zero and no final `ok` line is printed):
+Phases (each prints its own lines; any failure raises, so the exit code
+is non-zero and no final `ok` line is printed):
 
 1. the card's name and power limit; build every CUDA kernel.
 2. each kernel against its plain PyTorch version on the card, bit-exact,
@@ -17,12 +17,26 @@ non-zero and no final `ok` line is printed):
    (5,000 records of 10 kb, tests/make_synth_fasta.write_synth, seed
    1234) through warmup -> insert_file -> finalize, then stats, point
    lookups and query_file, checked against the reference's totals.
+5. consolidate: the same 50 Mb inserted a second time (two finalize
+   segments), lookups doubled, then consolidate() into one segment with
+   the same distinct count and lookups; the kernel against its plain
+   version at the consolidate's span shape.
+6. k63-deploy: k=63 m=21 b=14 on 4.6 Mb of 10 kb records (the streaming
+   insert), then save/load, KFF export and read-back, query_file and
+   reallocate; the kernel at the finalize's span shape.
+7. k63-short: k=63 on 4.6 Mb of 150 bp reads through the short-read
+   route.
+8. counter-cli: `python -m brisk_tpu_torch.apps.counter --mode 2
+   --device cuda -o <kff>` at k=31 and k=63.
 
-The second-to-last line is the kernel report (JSON), the last line
-`{"ok": true, "device": {...}}`. Needs one CUDA card; there is no CPU
-fallback.
+Each main-path phase zeroes the kernel launch counters before it runs
+and reads them after; comparisons with the plain versions run outside
+those windows. The second-to-last line is the kernel report (JSON), the
+last line `{"ok": true, "device": {...}}`. Needs one CUDA card; there is
+no CPU fallback.
 """
 
+import contextlib
 import json
 import os
 import random
@@ -35,6 +49,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 K, M, B = 31, 11, 8
 SYNTH_BASES, SYNTH_READ, SYNTH_SEED = 50_000_000, 10_000, 1234
 EXPECT_KMERS = 49_695_519  # n_emitted and query_file total at k=31 m=11
+K63 = (63, 21, 14)
+K63_BASES = 4_600_000
+EXPECT_K63_KMERS = 4_542_816        # 10 kb records (BENCH_r05 k63_nb_kmers)
+EXPECT_K63_SHORT_KMERS = 2_681_840  # 150 bp reads (k63_shortread_nb_kmers)
+N_LOOKUPS = 10_000
 
 
 def check(cond, msg: str) -> None:
@@ -45,6 +64,61 @@ def check(cond, msg: str) -> None:
 def say(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
+
+
+def sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def reset_launches() -> None:
+    from brisk_tpu_torch import kernels
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+
+
+def launches() -> int:
+    from brisk_tpu_torch import kernels
+    return kernels.LAUNCHES["expand_span_jmajor"]
+
+
+def reset_peak(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib(dev):
+    import torch
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+@contextlib.contextmanager
+def timed_state_machine(dev):
+    """The per-position loop's share of insert: a synchronized host clock
+    around every call of the enumerator's state machine, summed into the
+    yielded dict's "s"."""
+    from brisk_tpu_torch.ops import enumerate as enum_ops
+    loop = {"s": 0.0}
+    state_machine = enum_ops._state_machine
+
+    def timed(*args):
+        sync(dev)
+        t = time.perf_counter()
+        out = state_machine(*args)
+        sync(dev)
+        loop["s"] += time.perf_counter() - t
+        return out
+
+    enum_ops._state_machine = timed
+    try:
+        yield loop
+    finally:
+        enum_ops._state_machine = state_machine
 
 
 def repair_fixture(path: str) -> None:
@@ -101,32 +175,52 @@ def time_ms(fn, reps: int = 5) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def phase_kernels(dev) -> dict:
+def kernel_vs_plain(sb, sm, sn, k: int, m: int, b: int, s_max: int,
+                    timed: bool) -> dict:
+    """The CUDA kernel and its plain version on the same span rows:
+    bit-exact or raise; CUDA-event times of both when `timed`."""
     import torch
     from brisk_tpu_torch import kernels
     from brisk_tpu_torch.index import sklstore
+    got = kernels.expand_span_jmajor(sb, sm, sn, k, m, b, s_max)
+    want = sklstore._expand_span_jmajor_torch(sb, sm, sn, k, m, b, s_max)
+    torch.cuda.synchronize()
+    err = int(((got.to(torch.int64) & 0xFFFFFFFF)
+               - (want.to(torch.int64) & 0xFFFFFFFF)).abs().max())
+    R = sb.shape[0]
+    check(torch.equal(got, want), f"kernel != plain at k={k} R={R}")
+    del got, want
+    out = dict(R=R, max_abs_err=err)
+    if timed:
+        out["ms"] = time_ms(lambda: kernels.expand_span_jmajor(
+            sb, sm, sn, k, m, b, s_max))
+        out["plain_ms"] = time_ms(lambda: sklstore._expand_span_jmajor_torch(
+            sb, sm, sn, k, m, b, s_max))
+    torch.cuda.empty_cache()
+    return out
+
+
+def arena_span(skl, R: int):
+    """The first R rows of an arena as contiguous kernel inputs: the span
+    a finalize or consolidate of rows [0, R) hands the kernel."""
+    return (skl.bucket[:R].contiguous(), skl.meta[:R].contiguous(),
+            skl.nucs[:, :R].contiguous())
+
+
+def phase_kernels(dev) -> dict:
     worst = 0
     for (k, m, b), Rs in (((31, 11, 8), (1024, 12288, 1 << 23)),
-                          ((63, 21, 14), (1024, 12288))):
+                          (K63, (1024, 12288))):
         for R in Rs:
             sb, sm, sn, s_max = span_rows(R, k, m, b, seed=R + k, device=dev)
-            got = kernels.expand_span_jmajor(sb, sm, sn, k, m, b, s_max)
-            want = sklstore._expand_span_jmajor_torch(sb, sm, sn, k, m, b,
-                                                      s_max)
-            torch.cuda.synchronize()
-            err = int(((got.to(torch.int64) & 0xFFFFFFFF)
-                       - (want.to(torch.int64) & 0xFFFFFFFF)).abs().max())
-            check(torch.equal(got, want), f"kernel != plain at k={k} R={R}")
-            worst = max(worst, err)
-            say("kernel", k=k, R=R, exact=True, max_abs_err=err)
+            res = kernel_vs_plain(sb, sm, sn, k, m, b, s_max,
+                                  timed=R == 1 << 23)
+            worst = max(worst, res["max_abs_err"])
+            say("kernel", k=k, R=R, exact=True, max_abs_err=res["max_abs_err"])
             if R == 1 << 23:
-                ms = time_ms(lambda: kernels.expand_span_jmajor(
-                    sb, sm, sn, k, m, b, s_max))
-                plain_ms = time_ms(lambda: sklstore._expand_span_jmajor_torch(
-                    sb, sm, sn, k, m, b, s_max))
+                ms, plain_ms = res["ms"], res["plain_ms"]
                 say("kernel-time", k=k, R=R, kernel_ms=ms, plain_ms=plain_ms)
-            del sb, sm, sn, got, want
-    torch.cuda.empty_cache()
+            del sb, sm, sn
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
 
 
@@ -172,58 +266,55 @@ def sample_kmers(path: str, n: int, seed: int = 7) -> list:
     return out
 
 
-def phase_deployment(dev, tmp: str) -> dict:
-    import torch
-    from brisk_tpu_torch import kernels
-    from brisk_tpu_torch.api import Brisk
+def canonical_counts(idx, sample: list) -> list:
+    """Brisk.get_canonical over a sample, batched: each k-mer in its own
+    orientation, the misses again as their reverse complements."""
     from brisk_tpu_torch.oracle import pyref
-    from brisk_tpu_torch.ops import enumerate as enum_ops
-    from brisk_tpu_torch.params import Parameters
+    got = idx.get_many(sample)
+    miss = [i for i, c in enumerate(got) if c is None]
+    rcs = [pyref.num2str(pyref.revcomp(pyref.str2num(sample[i]), K), K)
+           for i in miss]
+    for i, c in zip(miss, idx.get_many(rcs)):
+        got[i] = c
+    return got
+
+
+def write_input(path: str, bases: int, read_len: int) -> None:
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from make_synth_fasta import write_synth
+    t = time.perf_counter()
+    write_synth(path, bases, read_len=read_len, seed=SYNTH_SEED)
+    say("input", file=os.path.basename(path), bases=bases,
+        read_len=read_len, write_s=round(time.perf_counter() - t, 2))
+
+
+def phase_deployment(dev, tmp: str) -> dict:
+    import torch
+    from brisk_tpu_torch.api import Brisk
+    from brisk_tpu_torch.params import Parameters
 
     path = os.path.join(tmp, "synth50m.fa")
-    t = time.perf_counter()
-    write_synth(path, SYNTH_BASES, read_len=SYNTH_READ, seed=SYNTH_SEED)
-    say("deploy-input", bases=SYNTH_BASES, records=SYNTH_BASES // SYNTH_READ,
-        write_s=round(time.perf_counter() - t, 2))
+    write_input(path, SYNTH_BASES, SYNTH_READ)
 
     idx = Brisk(Parameters(K, M, B), batch=2048, window=512, stack=8,
                 device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for name in kernels.LAUNCHES:
-        kernels.LAUNCHES[name] = 0
-    # the per-position loop's share of insert: a synchronized host clock
-    # around every call of the enumerator's state machine
-    loop = {"s": 0.0}
-    state_machine = enum_ops._state_machine
-
-    def timed_state_machine(*args):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = state_machine(*args)
-        torch.cuda.synchronize()
-        loop["s"] += time.perf_counter() - t
-        return out
-
-    enum_ops._state_machine = timed_state_machine
-    t0 = time.perf_counter()
-    idx.warmup(path=path)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    idx.insert_file(path)
-    idx._drain()
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    enum_ops._state_machine = state_machine
+    reset_peak(dev)
+    reset_launches()
+    with timed_state_machine(dev) as loop:
+        t0 = time.perf_counter()
+        idx.warmup(path=path)
+        sync(dev)
+        t1 = time.perf_counter()
+        idx.insert_file(path)
+        idx._drain()
+        sync(dev)
+        t2 = time.perf_counter()
     loop_s = loop["s"]
-    launches_before = dict(kernels.LAUNCHES)
+    launches_before = launches()
     idx.finalize()
-    torch.cuda.synchronize()
+    sync(dev)
     t3 = time.perf_counter()
-    fin_launches = (kernels.LAUNCHES["expand_span_jmajor"]
-                    - launches_before["expand_span_jmajor"])
+    fin_launches = launches() - launches_before
     insert_s, finalize_s = t2 - t1, t3 - t2
     say("deploy-insert", warmup_s=round(t1 - t0, 3), insert_s=insert_s,
         finalize_s=finalize_s, parser=idx.parser,
@@ -235,7 +326,7 @@ def phase_deployment(dev, tmp: str) -> dict:
     check(idx.n_skl_overflows == 0, "skl overflows on the synthetic input")
     check(fin_launches > 0, "finalize did not launch the expansion kernel")
     for name in ("bucket", "meta", "nucs", "data", "offs"):
-        check(getattr(idx.skl, name).device.type == "cuda",
+        check(getattr(idx.skl, name).device.type == dev.type,
               f"arena column {name} not on the card")
 
     t = time.perf_counter()
@@ -245,34 +336,254 @@ def phase_deployment(dev, tmp: str) -> dict:
 
     # point lookups: 10,000 k-mers sampled from the input, both strands
     # (Brisk.get_canonical, batched)
-    sample = sample_kmers(path, 10_000)
+    sample = sample_kmers(path, N_LOOKUPS)
     t = time.perf_counter()
-    got = idx.get_many(sample)
-    miss = [i for i, c in enumerate(got) if c is None]
-    rcs = [pyref.num2str(pyref.revcomp(pyref.str2num(sample[i]), K), K)
-           for i in miss]
-    for i, c in zip(miss, idx.get_many(rcs)):
-        got[i] = c
+    got = canonical_counts(idx, sample)
     get_s = time.perf_counter() - t
     for s, c in zip(sample[:20], got[:20]):
         check(idx.get_canonical(s) == c, "get_canonical != batched lookup")
     hits = sum(1 for c in got if c is not None and c >= 1)
     say("deploy-get", sampled=len(sample), found=hits, get_s=get_s)
-    check(hits >= 0.95 * len(sample), f"only {hits} of 10000 found")
+    check(hits >= 0.95 * len(sample), f"only {hits} of {len(sample)} found")
 
     t = time.perf_counter()
     total = idx.query_file(path)
-    torch.cuda.synchronize()
+    sync(dev)
     query_s = time.perf_counter() - t
     say("deploy-query", query_s=query_s, total=total,
         total_mod32=total & 0xFFFFFFFF, kmers_per_s=EXPECT_KMERS / query_s)
     check(total & 0xFFFFFFFF == EXPECT_KMERS,
           f"query_file total {total} != {EXPECT_KMERS}")
-    launches = kernels.LAUNCHES["expand_span_jmajor"]
-    check(launches > 0, "the main path never launched the kernel")
-    say("deploy-memory",
-        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    return dict(launches=launches)
+    n = launches()
+    check(n > 0, "the main path never launched the kernel")
+    say("deploy-memory", peak_gib=peak_gib(dev))
+    return dict(launches=n, idx=idx, path=path, sample=sample, got=got,
+                nb_kmers=st["nb_kmers"])
+
+
+def phase_consolidate(dev, dep: dict) -> dict:
+    """Two finalize segments of the same 50 Mb, then consolidate()."""
+    idx, path, sample, single = (dep["idx"], dep["path"], dep["sample"],
+                                 dep["got"])
+    reset_peak(dev)
+    reset_launches()
+    t = time.perf_counter()
+    idx.insert_file(path)
+    idx.finalize()
+    sync(dev)
+    insert2_s = time.perf_counter() - t
+    rows = int(idx.skl.n_rows)
+    check(len(idx._skl_segments) == 2,
+          f"{len(idx._skl_segments)} segments after the second insert")
+    doubled = canonical_counts(idx, sample)
+    want = [None if c is None else (2 * c) % 256 for c in single]
+    check(doubled == want, "lookups after the second insert are not doubled")
+    nb_before = idx.stats()["nb_kmers"]
+    check(nb_before == dep["nb_kmers"], "second insert changed nb_kmers")
+    n0 = launches()
+    t = time.perf_counter()
+    idx.consolidate()
+    sync(dev)
+    consolidate_s = time.perf_counter() - t
+    carry_launches = launches() - n0
+    check(carry_launches > 0, "consolidate did not launch the kernel")
+    check(len(idx._skl_segments) == 1, "consolidate left several segments")
+    check(int(idx.skl.n_rows) <= rows, "consolidate grew the arena")
+    check(idx.stats()["nb_kmers"] == nb_before,
+          "consolidate changed nb_kmers")
+    check(canonical_counts(idx, sample) == want,
+          "consolidate changed the lookups")
+    n = launches()
+    say("consolidate", insert2_s=insert2_s, rows_before=rows,
+        rows_after=int(idx.skl.n_rows), consolidate_s=consolidate_s,
+        carry_launches=carry_launches, peak_gib=peak_gib(dev))
+    # the kernel at the consolidate's span shape, on the arena's rows
+    from brisk_tpu_torch.index import sklstore
+    R = sklstore._shape_family(rows, floor=1 << 10)
+    s_max = sklstore.skl_dims(K, M, B)[1]
+    res = kernel_vs_plain(*arena_span(idx.skl, R), K, M, B, s_max,
+                          timed=True)
+    say("kernel", at="consolidate", k=K, R=R, exact=True,
+        max_abs_err=res["max_abs_err"], kernel_ms=res["ms"],
+        plain_ms=res["plain_ms"])
+    return dict(launches=n, kernel=res)
+
+
+def phase_k63_deploy(dev, tmp: str) -> dict:
+    from brisk_tpu_torch.api import Brisk
+    from brisk_tpu_torch.index import sklstore
+    from brisk_tpu_torch.io import kff
+    from brisk_tpu_torch.params import Parameters
+    k, m, b = K63
+    path = os.path.join(tmp, "synth_k63.fa")
+    write_input(path, K63_BASES, SYNTH_READ)
+    idx = Brisk(Parameters(k, m, b), batch=1024, window=512, stack=4,
+                device=dev)
+    reset_peak(dev)
+    reset_launches()
+    with timed_state_machine(dev) as loop:
+        t0 = time.perf_counter()
+        idx.warmup(os.path.getsize(path), record_len_hint=SYNTH_READ,
+                   path=path)
+        sync(dev)
+        t1 = time.perf_counter()
+        idx.insert_file(path)
+        idx._drain()
+        sync(dev)
+        t2 = time.perf_counter()
+    rows = int(idx.skl.n_rows)
+    n0 = launches()
+    idx.finalize()
+    sync(dev)
+    t3 = time.perf_counter()
+    fin_launches = launches() - n0
+    # the span the finalize handed the kernel: rows [0, R) bucket-sorted
+    # in place (dead rows INVALID)
+    R = sklstore._shape_family(rows, floor=1 << 10)
+    span = arena_span(idx.skl, R)
+    insert_s, finalize_s = t2 - t1, t3 - t2
+    say("k63-insert", warmup_s=round(t1 - t0, 3), insert_s=insert_s,
+        finalize_s=finalize_s, n_emitted=idx.n_emitted, rows=rows,
+        loop_share_of_insert=loop["s"] / insert_s,
+        kmers_per_s=idx.n_emitted / (insert_s + finalize_s),
+        peak_gib=peak_gib(dev))
+    check(idx.n_emitted == EXPECT_K63_KMERS,
+          f"k=63 n_emitted {idx.n_emitted} != {EXPECT_K63_KMERS}")
+    check(idx.n_repaired_windows == 0, "repairs at k=63")
+    check(fin_launches > 0, "k=63 finalize did not launch the kernel")
+    for name in ("bucket", "meta", "nucs", "data", "offs"):
+        check(getattr(idx.skl, name).device.type == dev.type,
+              f"k=63 arena column {name} not on the card")
+
+    times = {}
+    t = time.perf_counter()
+    want = idx.counts_dict()
+    times["counts_dict_s"] = time.perf_counter() - t
+    ckpt = os.path.join(tmp, "k63.npz")
+    t = time.perf_counter()
+    idx.save(ckpt)
+    times["save_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    loaded = Brisk.load(ckpt, batch=1024, window=512, device=dev)
+    sync(dev)
+    times["load_s"] = time.perf_counter() - t
+    check(loaded.skl.bucket.device.type == dev.type, "load left the card")
+    check(loaded.counts_dict() == want, "save -> load changed counts_dict")
+    del loaded
+    out = os.path.join(tmp, "k63.kff")
+    t = time.perf_counter()
+    kff.write_index_skl(out, idx.skl, idx.params)
+    times["kff_write_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    back, kk, mm = kff.read_index(out)
+    times["kff_read_s"] = time.perf_counter() - t
+    check((kk, mm) == (k, m) and back == want, "KFF read-back != counts_dict")
+    t = time.perf_counter()
+    total = idx.query_file(path)
+    sync(dev)
+    times["query_s"] = time.perf_counter() - t
+    check(total >= idx.n_emitted, f"k=63 query total {total} too small")
+    t = time.perf_counter()
+    idx.reallocate()
+    sync(dev)
+    times["reallocate_s"] = time.perf_counter() - t
+    p = idx.params
+    check((p.k, p.m, p.b) == (63, 23, 15), f"reallocate gave {p}")
+    check(idx.counts_dict() == want, "reallocate changed counts_dict")
+    n = launches()
+    say("k63-stages", query_total=total, kff_bytes=os.path.getsize(out),
+        npz_bytes=os.path.getsize(ckpt), peak_gib=peak_gib(dev),
+        **{k_: round(v, 3) for k_, v in times.items()})
+    del idx
+    s_max = sklstore.skl_dims(k, m, b)[1]
+    res = kernel_vs_plain(*span, k, m, b, s_max, timed=True)
+    say("kernel", at="k63-deploy", k=k, R=R, exact=True,
+        max_abs_err=res["max_abs_err"], kernel_ms=res["ms"],
+        plain_ms=res["plain_ms"])
+    return dict(launches=n, kernel=res)
+
+
+def phase_k63_short(dev, tmp: str) -> dict:
+    from brisk_tpu_torch.api import Brisk
+    from brisk_tpu_torch.io import fasta
+    from brisk_tpu_torch.params import Parameters
+    read_len = 150
+    path = os.path.join(tmp, "synth_k63_150.fa")
+    write_input(path, K63_BASES, read_len)
+    idx = Brisk(Parameters(*K63), batch=4096, window=512, stack=4,
+                device=dev)
+    # the short-read route lays every record out itself; BatchPacker.pack
+    # runs only for records longer than one lane buffer
+    packed = {"calls": 0}
+    pack = fasta.BatchPacker.pack
+
+    def counted_pack(self, chunks):
+        packed["calls"] += 1
+        return pack(self, chunks)
+
+    fasta.BatchPacker.pack = counted_pack
+    reset_peak(dev)
+    reset_launches()
+    try:
+        with timed_state_machine(dev) as loop:
+            t0 = time.perf_counter()
+            idx.warmup(os.path.getsize(path), record_len_hint=read_len,
+                       path=path)
+            sync(dev)
+            t1 = time.perf_counter()
+            idx.insert_file(path)
+            idx._drain()
+            sync(dev)
+            t2 = time.perf_counter()
+        idx.finalize()
+        sync(dev)
+        t3 = time.perf_counter()
+    finally:
+        fasta.BatchPacker.pack = pack
+    n = launches()
+    geo = idx._stream_geometry(read_len)
+    insert_s, finalize_s = t2 - t1, t3 - t2
+    say("k63-short", warmup_s=round(t1 - t0, 3), insert_s=insert_s,
+        finalize_s=finalize_s, n_emitted=idx.n_emitted, l_new=geo.l_new,
+        l_buf=geo.l_buf, slow_path_pack_calls=packed["calls"],
+        loop_share_of_insert=loop["s"] / insert_s,
+        kmers_per_s=idx.n_emitted / (insert_s + finalize_s),
+        peak_gib=peak_gib(dev))
+    check(idx.n_emitted == EXPECT_K63_SHORT_KMERS,
+          f"k=63 short-read n_emitted {idx.n_emitted} != "
+          f"{EXPECT_K63_SHORT_KMERS}")
+    check(packed["calls"] == 0, "reads left the short-read route")
+    check(n > 0, "k=63 short-read finalize did not launch the kernel")
+    return dict(launches=n)
+
+
+def phase_counter_cli(tmp: str) -> None:
+    from brisk_tpu_torch.io import kff
+    from brisk_tpu_torch.oracle import pyref
+    fa = os.path.join(REPO, "data", "test.fa")
+    for k, m, b in ((K, M, B), K63):
+        out = os.path.join(tmp, f"cli_k{k}.kff")
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "brisk_tpu_torch.apps.counter", "-f", fa,
+             "-k", str(k), "-m", str(m), "-b", str(b), "--mode", "2",
+             "--device", "cuda", "-o", out],
+            cwd=REPO, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=REPO))
+        cli_s = time.perf_counter() - t
+        lines = proc.stdout.splitlines()
+        check(proc.returncode == 0,
+              f"counter CLI k={k} exited {proc.returncode}:\n"
+              f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        check("All counts are correct !" in lines,
+              f"counter CLI k={k} did not verify:\n{proc.stdout[-2000:]}")
+        back = kff.read_index(out)[0]
+        check(back == pyref.count_fasta(fa, k, m),
+              f"counter CLI k={k}: KFF read-back != counts")
+        say("counter-cli", k=k, rc=proc.returncode, verified=True,
+            kff_kmers=len(back), cli_s=round(cli_s, 2),
+            device_line=next((ln for ln in lines
+                              if ln.startswith("Devices:")), None))
 
 
 def main() -> int:
@@ -302,13 +613,29 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_fixtures(dev, tmp)
         dep = phase_deployment(dev, tmp)
+        con = phase_consolidate(dev, dep)
+        dep_launches = dict(launches=dep["launches"])
+        del dep
+        torch.cuda.empty_cache()
+        k63 = phase_k63_deploy(dev, tmp)
+        torch.cuda.empty_cache()
+        short = phase_k63_short(dev, tmp)
+        phase_counter_cli(tmp)
 
+    total = sum(r["launches"] for r in (dep_launches, con, k63, short))
     report = {"kernels": [{
         "name": "expand_span_jmajor", "route": "cuda",
         "source": "brisk_tpu_torch/csrc/expand_span.cu",
         "replaces": "brisk_tpu/index/sklstore.py:725",
-        "launches": dep["launches"], "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"]}]}
+        "launches": total, "max_abs_err": max(
+            kern["max_abs_err"], con["kernel"]["max_abs_err"],
+            k63["kernel"]["max_abs_err"]),
+        "ms": kern["ms"], "plain_ms": kern["plain_ms"],
+        "k63_R": k63["kernel"]["R"], "k63_ms": k63["kernel"]["ms"],
+        "k63_plain_ms": k63["kernel"]["plain_ms"],
+        "consolidate_R": con["kernel"]["R"],
+        "consolidate_ms": con["kernel"]["ms"],
+        "consolidate_plain_ms": con["kernel"]["plain_ms"]}]}
     print(smi)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
