@@ -1,7 +1,8 @@
 """User-facing Brisk API on PyTorch (port of brisk_tpu.api, the
 single-device index).
 
-    Brisk(params, batch, window, stack, device)
+    Brisk(params, batch, window, stack, device)  device: the first CUDA
+                                                card unless given ("cpu")
     warmup / insert_file / insert_sequence      k <= 32: windowed flat
                                                 transport; k > 32: one
                                                 record per lane, streamed
@@ -42,6 +43,17 @@ from brisk_tpu_torch.params import Parameters
 _INFLIGHT_BYTES = 256 << 20  # host bytes pinned by un-retired flushes
 
 
+def _device(device) -> torch.device:
+    """The index's torch device. A CUDA device needs a card: without one
+    this raises instead of running on the host."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"Brisk(device={str(device)!r}): no CUDA card is "
+                           "available (pass device='cpu' to index on the "
+                           "host)")
+    return dev
+
+
 class Brisk:
     """Dynamic k-mer -> count index with batched insert/query.
 
@@ -54,9 +66,9 @@ class Brisk:
     and nothing repairs."""
 
     def __init__(self, params: Parameters, batch: int = 512,
-                 window: int = 512, stack: int = 8, device="cpu"):
+                 window: int = 512, stack: int = 8, device="cuda"):
         self.params = params
-        self.device = torch.device(device)
+        self.device = _device(device)
         self.batch = batch
         wu = windows.default_warmup(params.k, params.m)
         self.window = max(window, -(-(wu + 48) // 16) * 16)
@@ -810,9 +822,10 @@ class Brisk:
 
     @classmethod
     def load(cls, path: str, batch: int = 512, window: int = 512,
-             device="cpu") -> "Brisk":
-        """Load a super-k-mer-arena checkpoint written by the JAX
-        package's Brisk.save onto `device`."""
+             device="cuda") -> "Brisk":
+        """Load a super-k-mer-arena checkpoint written by either
+        package's Brisk.save onto `device` (the first CUDA card unless
+        given)."""
         z = np.load(path if path.endswith(".npz") else path + ".npz")
         params = Parameters(k=int(z["k"]), m=int(z["m"]), b=int(z["b"]))
         if "skl_bucket" not in z:

@@ -317,6 +317,23 @@ def _expand_span_jmajor_torch(sb: torch.Tensor, sm: torch.Tensor,
     return torch.stack(planes, dim=1).reshape(len(planes[0]), -1)
 
 
+def _expand_span_rowmajor_torch(sb: torch.Tensor, sm: torch.Tensor,
+                                sn: torch.Tensor, k: int, m: int, b: int,
+                                s_max: int) -> torch.Tensor:
+    """Plain version of the span expansion, ROW-MAJOR output (slot
+    r*s_max + j; the function of the reference's _expand_span): the
+    J-major plain version and one transpose."""
+    return _jmajor_to_rowmajor(
+        _expand_span_jmajor_torch(sb, sm, sn, k, m, b, s_max), s_max)
+
+
+def _jmajor_to_rowmajor(keys: torch.Tensor, s_max: int) -> torch.Tensor:
+    """J-major keys (slot j*R + r) -> row-major (slot r*s_max + j), one
+    transpose copy."""
+    W = keys.shape[0]
+    return keys.reshape(W, s_max, -1).transpose(1, 2).reshape(W, -1)
+
+
 def _expand_span_jmajor(sb, sm, sn, k: int, m: int, b: int, s_max: int):
     """J-major span expansion: the CUDA kernel for tensors on the card,
     the plain version for tensors on the CPU."""
@@ -327,11 +344,15 @@ def _expand_span_jmajor(sb, sm, sn, k: int, m: int, b: int, s_max: int):
 
 def _expand_span(sb, sm, sn, k: int, m: int, b: int, s_max: int):
     """ROW-MAJOR per-slot keys (W, R*s_max) int32 (slot r*s_max + j) and
-    live mask, from the J-major expansion by one transpose. A live key's
-    top word is never INVALID (reserved top bit)."""
-    keys_jm = _expand_span_jmajor(sb, sm, sn, k, m, b, s_max)
-    W = keys_jm.shape[0]
-    keys = keys_jm.reshape(W, s_max, -1).transpose(1, 2).reshape(W, -1)
+    live mask: the kernel's row-major layout for tensors on the card (no
+    J-major intermediate, no transpose), the plain version for tensors
+    on the CPU. A live key's top word is never INVALID (reserved top
+    bit)."""
+    if sb.device.type == "cpu":
+        keys = _expand_span_rowmajor_torch(sb, sm, sn, k, m, b, s_max)
+    else:
+        keys = kernels.expand_span(sb, sm, sn, k, m, b, s_max,
+                                   layout="rowmajor")
     return keys, keys[0] != -1
 
 

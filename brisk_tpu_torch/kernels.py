@@ -2,20 +2,24 @@
 
 Each kernel lives in `csrc/*.cu` with a plain C entry point, is compiled
 by `nvcc` for sm_90a into a shared library under `_build/` (named by the
-source's content hash, so an edited source rebuilds) at first use, and is
-called through ctypes on PyTorch's current stream. Nothing is built or
-loaded at import.
+source's content hash and flags, so an edited source rebuilds) at first
+use, one library per s_max (its one compile-time shape, -DBRISK_S_MAX),
+and is called through ctypes on PyTorch's current stream. Nothing is
+built or loaded at import.
 
 A wrapper checks device, dtype, contiguity and shapes and raises on
 anything else; it raises when the launch reports a CUDA error; it adds
 one to `LAUNCHES[name]` per launch. The plain PyTorch version of each
 kernel sits next to its caller (the CPU path and the reference).
 
-    expand_span_jmajor   csrc/expand_span.cu   replaces the Pallas kernel
+    expand_span          csrc/expand_span.cu   replaces the Pallas kernel
                          brisk_tpu/index/sklstore.py
-                         _expand_span_jmajor_pallas
+                         _expand_span_jmajor_pallas; J-major or
+                         row-major (LAUNCHES "expand_span_jmajor",
+                         "expand_span_rowmajor")
 """
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -31,9 +35,10 @@ _SOURCES = {"expand_span": os.path.join(_DIR, "csrc", "expand_span.cu")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"expand_span_jmajor": 0}
-_libs = {}
-BUILD_LOG = {}  # name -> nvcc output of the build (ptxas register report)
+LAYOUTS = {"jmajor": 0, "rowmajor": 1}
+LAUNCHES = {"expand_span_jmajor": 0, "expand_span_rowmajor": 0}
+_libs = {}  # (name, s_max) -> loaded library
+BUILD_LOG = {}  # library name -> nvcc output (ptxas register report)
 
 
 def _nvcc() -> str:
@@ -44,37 +49,49 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def _library(name: str) -> ctypes.CDLL:
-    """Build (once per source content) and load one kernel library."""
-    if name in _libs:
-        return _libs[name]
+def _build_so(name: str, s_max: int) -> str:
+    """Compile one CUDA source at one s_max into
+    `_build/lib<name>_s<s_max>_<hash>.so` (once per source content and
+    flags); returns the library's path."""
     src = _SOURCES[name]
+    flags = NVCC_FLAGS + [f"-DBRISK_S_MAX={s_max}"]
     with open(src, "rb") as fh:
         digest = hashlib.sha256(fh.read()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = os.path.join(_BUILD_DIR, f"lib{name}_{digest[:16]}.so")
+                                + " ".join(flags).encode()).hexdigest()
+    tag = f"{name}_s{s_max}"
+    so = os.path.join(_BUILD_DIR, f"lib{tag}_{digest[:16]}.so")
     if not os.path.exists(so):
         os.makedirs(_BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc()] + NVCC_FLAGS + ["-o", tmp, src],
+        proc = subprocess.run([_nvcc()] + flags + ["-o", tmp, src],
                               capture_output=True, text=True)
-        BUILD_LOG[name] = proc.stdout + proc.stderr
+        BUILD_LOG[tag] = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{BUILD_LOG[name]}")
+            raise RuntimeError(f"nvcc failed for {src}:\n{BUILD_LOG[tag]}")
         os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
-    fn = lib.brisk_expand_span_jmajor
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    return so
+
+
+def _library(name: str, s_max: int) -> ctypes.CDLL:
+    """Build (once per source content) and load one kernel library."""
+    if (name, s_max) in _libs:
+        return _libs[name, s_max]
+    lib = ctypes.CDLL(_build_so(name, s_max))
+    fn = lib.brisk_expand_span
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    _libs[name] = lib
+    _libs[name, s_max] = lib
     return lib
 
 
-def build() -> dict:
-    """Build and load every kernel library now; returns the build logs."""
-    for name in _SOURCES:
-        _library(name)
+def build(s_maxes=(8,)) -> dict:
+    """Build and load every kernel library at each s_max now, one nvcc per
+    library, all started together; returns the build logs. s_max is 8 at
+    every configuration with m <= k - 4."""
+    jobs = [(name, s) for name in _SOURCES for s in s_maxes]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(lambda job: _library(*job), jobs))
     return dict(BUILD_LOG)
 
 
@@ -91,15 +108,20 @@ def _check(t: torch.Tensor, what: str, shape: tuple, device) -> None:
         raise ValueError(f"{what}: expected a contiguous tensor")
 
 
-def expand_span_jmajor(sb: torch.Tensor, sm: torch.Tensor, sn: torch.Tensor,
-                       k: int, m: int, b: int, s_max: int) -> torch.Tensor:
+def expand_span(sb: torch.Tensor, sm: torch.Tensor, sn: torch.Tensor,
+                k: int, m: int, b: int, s_max: int,
+                layout: str = "jmajor") -> torch.Tensor:
     """CUDA span expansion: int32 rows sb (R,), sm (R,), sn (nw, R) ->
-    keys (W, s_max*R) int32, J-major (slot j*R + r). Same contract as
-    sklstore._expand_span_jmajor_torch."""
+    keys (W, s_max*R) int32, J-major (slot j*R + r; the contract of
+    sklstore._expand_span_jmajor_torch) or row-major (slot r*s_max + j;
+    sklstore._expand_span_rowmajor_torch)."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {sorted(LAYOUTS)}, "
+                         f"got {layout!r}")
     R = sb.shape[0] if sb.dim() == 1 else -1
     nw = sn.shape[0] if sn.dim() == 2 else -1
     W = store.key_words(k, b)
-    if R < 0 or not 1 <= nw <= 6 or W > 6 or not 1 <= s_max <= 255:
+    if R < 0 or not 1 <= nw <= 6 or W > 6 or not 1 <= s_max <= 8:
         raise ValueError(f"unsupported shapes: sb {tuple(sb.shape)}, "
                          f"sn {tuple(sn.shape)}, W={W}, s_max={s_max}")
     dev = sb.device
@@ -109,13 +131,19 @@ def expand_span_jmajor(sb: torch.Tensor, sm: torch.Tensor, sn: torch.Tensor,
     out = torch.empty((W, s_max * R), dtype=torch.int32, device=dev)
     if R == 0:
         return out
-    fn = _library("expand_span").brisk_expand_span_jmajor
+    fn = _library("expand_span", s_max).brisk_expand_span
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(sb.data_ptr(), sm.data_ptr(), sn.data_ptr(), out.data_ptr(),
-                R, k, m, b, s_max, nw, W, stream)
+                R, k, m, b, s_max, nw, W, LAYOUTS[layout], stream)
     if rc != 0:
-        raise RuntimeError(f"expand_span_jmajor launch failed: "
+        raise RuntimeError(f"expand_span ({layout}) launch failed: "
                            f"cudaError {rc}")
-    LAUNCHES["expand_span_jmajor"] += 1
+    LAUNCHES["expand_span_" + layout] += 1
     return out
+
+
+def expand_span_jmajor(sb: torch.Tensor, sm: torch.Tensor, sn: torch.Tensor,
+                       k: int, m: int, b: int, s_max: int) -> torch.Tensor:
+    """The J-major CUDA span expansion (expand_span, layout "jmajor")."""
+    return expand_span(sb, sm, sn, k, m, b, s_max, layout="jmajor")

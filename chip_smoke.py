@@ -9,7 +9,12 @@ is non-zero and no final `ok` line is printed):
 
 1. the card's name and power limit; build every CUDA kernel.
 2. each kernel against its plain PyTorch version on the card, bit-exact,
-   at the shapes the main path gives it; times at the full shape.
+   at the shapes the main path gives it: the span expansion in both
+   layouts at the four span shapes of brisk_tpu_torch.bench_expand
+   (finalize k=31 and k=63, consolidate, expand_device), on insert-shaped
+   rows and on rows with any meta, plus small and ragged spans; per shape
+   the kernel's time, its bound and share of it, a fill_ of the output,
+   the plain version and, row-major, the old path (J-major + transpose).
 3. fixture parity on the card: counts_dict() equals the pure-Python
    oracle (pyref.count_fasta) on data/test.fa, data/debug_test.fa and a
    fixture that exercises the exact repair and overflow paths.
@@ -54,6 +59,10 @@ K63_BASES = 4_600_000
 EXPECT_K63_KMERS = 4_542_816        # 10 kb records (BENCH_r05 k63_nb_kmers)
 EXPECT_K63_SHORT_KMERS = 2_681_840  # 150 bp reads (k63_shortread_nb_kmers)
 N_LOOKUPS = 10_000
+# (k, m, b) and span sizes of phase 2's small and ragged spans; (63,61,1)
+# gives s_max 5, the others 8
+KERNEL_SPANS = (((K, M, B), (1000, 1001, 1024, 12288)),
+                (K63, (1024, 12290)), ((63, 61, 1), (1027,)))
 
 
 def check(cond, msg: str) -> None:
@@ -78,9 +87,17 @@ def reset_launches() -> None:
         kernels.LAUNCHES[name] = 0
 
 
-def launches() -> int:
+def layout_launches() -> dict:
+    return {layout: launches(layout) for layout in ("jmajor", "rowmajor")}
+
+
+def launches(layout: str = "") -> int:
+    """Kernel launches since the last reset: of one span-expansion layout,
+    or of every kernel."""
     from brisk_tpu_torch import kernels
-    return kernels.LAUNCHES["expand_span_jmajor"]
+    if layout:
+        return kernels.LAUNCHES["expand_span_" + layout]
+    return sum(kernels.LAUNCHES.values())
 
 
 def reset_peak(dev) -> None:
@@ -137,65 +154,34 @@ def repair_fixture(path: str) -> None:
         fh.write(">repair\n" + rec + "\n")
 
 
-def span_rows(R: int, k: int, m: int, b: int, seed: int, device):
-    """Random span rows that respect the arena's invariants (tests use
-    the same recipe): bucket < 4^b or dead, size in [1, s_max]."""
-    import numpy as np
-    import torch
-    from brisk_tpu_torch.index import sklstore
-    cs, s_max, _, nw = sklstore.skl_dims(k, m, b)
-    rng = np.random.default_rng(seed)
-    bucket = rng.integers(0, 1 << (2 * b), R, dtype=np.uint32)
-    bucket[rng.random(R) < 0.15] = 0xFFFFFFFF
-    size = rng.integers(1, s_max + 1, R, dtype=np.uint32)
-    mini = (size - 1) + rng.integers(0, cs - s_max + 1, R,
-                                     dtype=np.uint32) + 3
-    meta = ((size & 0xFF) | ((mini & 0xFF) << 8)).astype(np.uint32)
-    nucs = rng.integers(0, 1 << 32, (nw, R), dtype=np.uint32)
-
-    def dev(a):
-        return torch.from_numpy(a.view(np.int32).copy()).to(device)
-
-    return dev(bucket), dev(meta), dev(nucs), s_max
-
-
-def time_ms(fn, reps: int = 5) -> float:
-    """Median CUDA-event time of fn() over `reps` runs after a warm run."""
-    import torch
-    fn()
-    times = []
-    for _ in range(reps):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        fn()
-        t1.record()
-        torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1))
-    return sorted(times)[len(times) // 2]
-
-
 def kernel_vs_plain(sb, sm, sn, k: int, m: int, b: int, s_max: int,
                     timed: bool) -> dict:
-    """The CUDA kernel and its plain version on the same span rows:
-    bit-exact or raise; CUDA-event times of both when `timed`."""
+    """The CUDA kernel in both layouts and its plain versions on the same
+    span rows: bit-exact or raise; when `timed`, the CUDA-event times of
+    each layout's kernel and of its own plain version (`jmajor_ms`,
+    `jmajor_plain_ms`, `rowmajor_ms`, `rowmajor_plain_ms`)."""
     import torch
-    from brisk_tpu_torch import kernels
-    from brisk_tpu_torch.index import sklstore
-    got = kernels.expand_span_jmajor(sb, sm, sn, k, m, b, s_max)
-    want = sklstore._expand_span_jmajor_torch(sb, sm, sn, k, m, b, s_max)
-    torch.cuda.synchronize()
-    err = int(((got.to(torch.int64) & 0xFFFFFFFF)
-               - (want.to(torch.int64) & 0xFFFFFFFF)).abs().max())
+    from brisk_tpu_torch import bench_expand, kernels
     R = sb.shape[0]
-    check(torch.equal(got, want), f"kernel != plain at k={k} R={R}")
-    del got, want
-    out = dict(R=R, max_abs_err=err)
+    out = dict(R=R, max_abs_err=0)
+    for layout in ("jmajor", "rowmajor"):
+        got = kernels.expand_span(sb, sm, sn, k, m, b, s_max, layout=layout)
+        want = bench_expand.plain(layout)(sb, sm, sn, k, m, b, s_max)
+        torch.cuda.synchronize()
+        err = int(((got.to(torch.int64) & 0xFFFFFFFF)
+                   - (want.to(torch.int64) & 0xFFFFFFFF)).abs().max())
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        check(torch.equal(got, want),
+              f"{layout} kernel != plain at k={k} R={R}")
+        del got, want
     if timed:
-        out["ms"] = time_ms(lambda: kernels.expand_span_jmajor(
-            sb, sm, sn, k, m, b, s_max))
-        out["plain_ms"] = time_ms(lambda: sklstore._expand_span_jmajor_torch(
-            sb, sm, sn, k, m, b, s_max))
+        args = (sb, sm, sn, k, m, b, s_max)
+        for layout in ("jmajor", "rowmajor"):
+            out[layout + "_ms"] = bench_expand.time_ms(
+                lambda: kernels.expand_span(*args, layout=layout))
+            out[layout + "_plain_ms"] = bench_expand.time_ms(
+                lambda: bench_expand.plain(layout)(*args), calls=1)
+        out["bound_ms"] = bench_expand.bound_ms(R, k, m, b)
     torch.cuda.empty_cache()
     return out
 
@@ -208,20 +194,38 @@ def arena_span(skl, R: int):
 
 
 def phase_kernels(dev) -> dict:
+    """The span expansion in both layouts against its plain versions:
+    small and ragged spans at three configurations, then the four span
+    shapes of the main path (insert-shaped rows and rows with any meta),
+    each timed by bench_expand.measure."""
+    from brisk_tpu_torch import bench_expand
     worst = 0
-    for (k, m, b), Rs in (((31, 11, 8), (1024, 12288, 1 << 23)),
-                          (K63, (1024, 12288))):
+    for (k, m, b), Rs in KERNEL_SPANS:
         for R in Rs:
-            sb, sm, sn, s_max = span_rows(R, k, m, b, seed=R + k, device=dev)
-            res = kernel_vs_plain(sb, sm, sn, k, m, b, s_max,
-                                  timed=R == 1 << 23)
+            for garbage in (0.0, 0.05, 1.0):
+                sb, sm, sn, s_max = bench_expand.span_rows(
+                    R, k, m, b, seed=R + k, device=dev, garbage=garbage)
+                res = kernel_vs_plain(sb, sm, sn, k, m, b, s_max, False)
+                worst = max(worst, res["max_abs_err"])
+            say("kernel", k=k, m=m, b=b, R=R, layouts="jmajor+rowmajor",
+                exact=True, max_abs_err=res["max_abs_err"])
+    shapes = []
+    for name, (k, m, b), R, layout in bench_expand.SHAPES:
+        for garbage in (0.0, 1.0):
+            sb, sm, sn, s_max = bench_expand.span_rows(
+                R, k, m, b, seed=R + k + 1, device=dev, garbage=garbage)
+            res = kernel_vs_plain(sb, sm, sn, k, m, b, s_max, False)
             worst = max(worst, res["max_abs_err"])
-            say("kernel", k=k, R=R, exact=True, max_abs_err=res["max_abs_err"])
-            if R == 1 << 23:
-                ms, plain_ms = res["ms"], res["plain_ms"]
-                say("kernel-time", k=k, R=R, kernel_ms=ms, plain_ms=plain_ms)
             del sb, sm, sn
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+        say("kernel", shape=name, R=R, layouts="jmajor+rowmajor",
+            meta="insert-shaped+any", exact=True)
+        t = bench_expand.measure(name, (k, m, b), R, layout, dev)
+        say("kernel-time", **{key: t[key] for key in (
+            "shape", "layout", "R", "kernel_ms", "bound_ms",
+            "share_of_bound", "fill_ms", "plain_ms")},
+            old_path_ms=t.get("old_path_ms"))
+        shapes.append(t)
+    return dict(max_abs_err=worst, shapes=shapes)
 
 
 def phase_fixtures(dev, tmp: str) -> None:
@@ -329,10 +333,15 @@ def phase_deployment(dev, tmp: str) -> dict:
         check(getattr(idx.skl, name).device.type == dev.type,
               f"arena column {name} not on the card")
 
+    # stats (distinct_count -> expand_device): the row-major kernel, no
+    # J-major expansion and so no transpose of the key array
+    jm0, rm0 = launches("jmajor"), launches("rowmajor")
     t = time.perf_counter()
     st = idx.stats()
     say("deploy-stats", stats_s=round(time.perf_counter() - t, 3),
         **{k: v for k, v in st.items()})
+    check(launches("rowmajor") > rm0 and launches("jmajor") == jm0,
+          "stats did not run the row-major kernel alone")
 
     # point lookups: 10,000 k-mers sampled from the input, both strands
     # (Brisk.get_canonical, batched)
@@ -346,17 +355,23 @@ def phase_deployment(dev, tmp: str) -> dict:
     say("deploy-get", sampled=len(sample), found=hits, get_s=get_s)
     check(hits >= 0.95 * len(sample), f"only {hits} of {len(sample)} found")
 
+    rm0 = launches("rowmajor")
     t = time.perf_counter()
     total = idx.query_file(path)
     sync(dev)
     query_s = time.perf_counter() - t
+    # the index side of the join expands row-major, the fresh query
+    # shadow J-major
+    check(launches("rowmajor") > rm0,
+          "query_file's index side did not run the row-major kernel")
     say("deploy-query", query_s=query_s, total=total,
         total_mod32=total & 0xFFFFFFFF, kmers_per_s=EXPECT_KMERS / query_s)
     check(total & 0xFFFFFFFF == EXPECT_KMERS,
           f"query_file total {total} != {EXPECT_KMERS}")
-    n = launches()
-    check(n > 0, "the main path never launched the kernel")
-    say("deploy-memory", peak_gib=peak_gib(dev))
+    n = layout_launches()
+    check(n["jmajor"] > 0 and n["rowmajor"] > 0,
+          f"the main path did not launch both layouts: {n}")
+    say("deploy-memory", peak_gib=peak_gib(dev), launches=n)
     return dict(launches=n, idx=idx, path=path, sample=sample, got=got,
                 nb_kmers=st["nb_kmers"])
 
@@ -380,23 +395,31 @@ def phase_consolidate(dev, dep: dict) -> dict:
     check(doubled == want, "lookups after the second insert are not doubled")
     nb_before = idx.stats()["nb_kmers"]
     check(nb_before == dep["nb_kmers"], "second insert changed nb_kmers")
-    n0 = launches()
+    jm0, rm0 = launches("jmajor"), launches("rowmajor")
+    phase_peak = peak_gib(dev)
+    reset_peak(dev)
     t = time.perf_counter()
     idx.consolidate()
     sync(dev)
     consolidate_s = time.perf_counter() - t
-    carry_launches = launches() - n0
-    check(carry_launches > 0, "consolidate did not launch the kernel")
+    consolidate_peak = peak_gib(dev)
+    carry_launches = launches("rowmajor") - rm0
+    check(carry_launches > 0, "consolidate did not launch the row-major "
+          "kernel")
+    check(launches("jmajor") == jm0,
+          "consolidate ran the J-major kernel (and a transpose)")
     check(len(idx._skl_segments) == 1, "consolidate left several segments")
     check(int(idx.skl.n_rows) <= rows, "consolidate grew the arena")
     check(idx.stats()["nb_kmers"] == nb_before,
           "consolidate changed nb_kmers")
     check(canonical_counts(idx, sample) == want,
           "consolidate changed the lookups")
-    n = launches()
+    n = layout_launches()
     say("consolidate", insert2_s=insert2_s, rows_before=rows,
         rows_after=int(idx.skl.n_rows), consolidate_s=consolidate_s,
-        carry_launches=carry_launches, peak_gib=peak_gib(dev))
+        carry_launches=carry_launches, launches=n,
+        peak_gib=phase_peak and max(phase_peak, peak_gib(dev)),
+        consolidate_peak_gib=consolidate_peak)
     # the kernel at the consolidate's span shape, on the arena's rows
     from brisk_tpu_torch.index import sklstore
     R = sklstore._shape_family(rows, floor=1 << 10)
@@ -404,8 +427,7 @@ def phase_consolidate(dev, dep: dict) -> dict:
     res = kernel_vs_plain(*arena_span(idx.skl, R), K, M, B, s_max,
                           timed=True)
     say("kernel", at="consolidate", k=K, R=R, exact=True,
-        max_abs_err=res["max_abs_err"], kernel_ms=res["ms"],
-        plain_ms=res["plain_ms"])
+        **{key: v for key, v in res.items() if key != "R"})
     return dict(launches=n, kernel=res)
 
 
@@ -456,9 +478,12 @@ def phase_k63_deploy(dev, tmp: str) -> dict:
               f"k=63 arena column {name} not on the card")
 
     times = {}
+    jm0, rm0 = launches("jmajor"), launches("rowmajor")
     t = time.perf_counter()
     want = idx.counts_dict()
     times["counts_dict_s"] = time.perf_counter() - t
+    check(launches("rowmajor") > rm0 and launches("jmajor") == jm0,
+          "counts_dict did not run the row-major kernel alone")
     ckpt = os.path.join(tmp, "k63.npz")
     t = time.perf_counter()
     idx.save(ckpt)
@@ -490,7 +515,7 @@ def phase_k63_deploy(dev, tmp: str) -> dict:
     p = idx.params
     check((p.k, p.m, p.b) == (63, 23, 15), f"reallocate gave {p}")
     check(idx.counts_dict() == want, "reallocate changed counts_dict")
-    n = launches()
+    n = layout_launches()
     say("k63-stages", query_total=total, kff_bytes=os.path.getsize(out),
         npz_bytes=os.path.getsize(ckpt), peak_gib=peak_gib(dev),
         **{k_: round(v, 3) for k_, v in times.items()})
@@ -498,8 +523,7 @@ def phase_k63_deploy(dev, tmp: str) -> dict:
     s_max = sklstore.skl_dims(k, m, b)[1]
     res = kernel_vs_plain(*span, k, m, b, s_max, timed=True)
     say("kernel", at="k63-deploy", k=k, R=R, exact=True,
-        max_abs_err=res["max_abs_err"], kernel_ms=res["ms"],
-        plain_ms=res["plain_ms"])
+        **{key: v for key, v in res.items() if key != "R"})
     return dict(launches=n, kernel=res)
 
 
@@ -540,7 +564,7 @@ def phase_k63_short(dev, tmp: str) -> dict:
         t3 = time.perf_counter()
     finally:
         fasta.BatchPacker.pack = pack
-    n = launches()
+    n = layout_launches()
     geo = idx._stream_geometry(read_len)
     insert_s, finalize_s = t2 - t1, t3 - t2
     say("k63-short", warmup_s=round(t1 - t0, 3), insert_s=insert_s,
@@ -553,7 +577,8 @@ def phase_k63_short(dev, tmp: str) -> dict:
           f"k=63 short-read n_emitted {idx.n_emitted} != "
           f"{EXPECT_K63_SHORT_KMERS}")
     check(packed["calls"] == 0, "reads left the short-read route")
-    check(n > 0, "k=63 short-read finalize did not launch the kernel")
+    check(n["jmajor"] > 0,
+          "k=63 short-read finalize did not launch the kernel")
     return dict(launches=n)
 
 
@@ -593,6 +618,7 @@ def main() -> int:
                          "(torch.cuda.is_available() is False)")
     sys.path.insert(0, REPO)
     from brisk_tpu_torch import kernels
+    from brisk_tpu_torch.index import sklstore
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -602,7 +628,8 @@ def main() -> int:
     say("device", name=torch.cuda.get_device_name(0),
         torch=torch.__version__, cuda=torch.version.cuda)
     t = time.perf_counter()
-    logs = kernels.build()
+    logs = kernels.build(sorted({sklstore.skl_dims(*kmb)[1]
+                                 for kmb, _ in KERNEL_SPANS}))
     say("build", seconds=round(time.perf_counter() - t, 2))
     for name, log in logs.items():
         for line in log.splitlines():
@@ -622,20 +649,31 @@ def main() -> int:
         short = phase_k63_short(dev, tmp)
         phase_counter_cli(tmp)
 
-    total = sum(r["launches"] for r in (dep_launches, con, k63, short))
+    per_layout = {layout: sum(r["launches"][layout] for r in (
+        dep_launches, con, k63, short)) for layout in ("jmajor", "rowmajor")}
+    first = kern["shapes"][0]  # finalize k=31, 2^23 rows, J-major
     report = {"kernels": [{
-        "name": "expand_span_jmajor", "route": "cuda",
+        "name": "expand_span", "route": "cuda",
         "source": "brisk_tpu_torch/csrc/expand_span.cu",
         "replaces": "brisk_tpu/index/sklstore.py:725",
-        "launches": total, "max_abs_err": max(
-            kern["max_abs_err"], con["kernel"]["max_abs_err"],
-            k63["kernel"]["max_abs_err"]),
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"],
-        "k63_R": k63["kernel"]["R"], "k63_ms": k63["kernel"]["ms"],
-        "k63_plain_ms": k63["kernel"]["plain_ms"],
+        "launches": sum(per_layout.values()),
+        "launches_by_layout": per_layout,
+        "max_abs_err": max(kern["max_abs_err"], con["kernel"]["max_abs_err"],
+                           k63["kernel"]["max_abs_err"]),
+        "ms": first["kernel_ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        "library_ms": None,
+        "shapes": [{key: t.get(key) for key in (
+            "shape", "layout", "R", "kernel_ms", "bound_ms",
+            "share_of_bound", "fill_ms", "plain_ms", "old_path_ms")}
+            for t in kern["shapes"]],
+        "k63_R": k63["kernel"]["R"],
+        "k63_jmajor_ms": k63["kernel"]["jmajor_ms"],
+        "k63_jmajor_plain_ms": k63["kernel"]["jmajor_plain_ms"],
         "consolidate_R": con["kernel"]["R"],
-        "consolidate_ms": con["kernel"]["ms"],
-        "consolidate_plain_ms": con["kernel"]["plain_ms"]}]}
+        "consolidate_rowmajor_ms": con["kernel"]["rowmajor_ms"],
+        "consolidate_rowmajor_plain_ms":
+            con["kernel"]["rowmajor_plain_ms"]}]}
     print(smi)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -118,7 +118,8 @@ def test_unported_entry_points_raise(tmp_path):
     tb.consolidate()
     tb.reallocate()
     tb.save(str(tmp_path / "idx.npz"))
-    assert TBrisk.load(str(tmp_path / "idx.npz")).counts_dict() == want
+    assert TBrisk.load(str(tmp_path / "idx.npz"),
+                       device="cpu").counts_dict() == want
     for mod in ("data_api", "parallel"):
         with pytest.raises(ModuleNotFoundError):
             importlib.import_module("brisk_tpu_torch." + mod)
@@ -156,3 +157,26 @@ def test_synthetic_reads_with_n_runs_match_oracle(tmp_path):
     assert tb.n_emitted == sum(len(c) - K + 1
                                for c in pyref.read_fasta_chunks(path)
                                if len(c) >= K)
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    """Brisk(params) and Brisk.load(path) run on the first CUDA card
+    unless asked for the host, and raise (no silent CPU index) when
+    there is no card; device="cpu" runs on the host."""
+    import inspect
+    assert inspect.signature(TBrisk).parameters["device"].default == "cuda"
+    assert inspect.signature(TBrisk.load).parameters[
+        "device"].default == "cuda"
+    tb = TBrisk(Parameters(K, M, B), batch=4, window=64, device="cpu")
+    tb.insert_sequence("ACGTTGCAAC" * 20)
+    tb.save(str(tmp_path / "idx.npz"))
+    assert tb.skl.bucket.device.type == "cpu"
+    if torch.cuda.is_available():
+        assert TBrisk(Parameters(K, M, B)).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        TBrisk(Parameters(K, M, B))
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        TBrisk.load(str(tmp_path / "idx.npz"))
+    back = TBrisk.load(str(tmp_path / "idx.npz"), device="cpu")
+    assert back.counts_dict() == tb.counts_dict()

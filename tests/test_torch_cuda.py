@@ -1,5 +1,7 @@
 """Tests that need a CUDA card (marker `cuda`): the CUDA span expansion
-kernel against its plain PyTorch version, a small index on the card
+kernel in both layouts against its plain PyTorch versions (random,
+insert-shaped and mixed rows, ragged and misaligned spans), a small
+index on the card
 against the pure-Python oracle, and the k = 63 streaming insert and
 consolidate_all on the card against the port on the CPU, array for
 array. They skip on a machine without a card.
@@ -12,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from brisk_tpu_torch import kernels
+from brisk_tpu_torch import bench_expand, kernels
 from brisk_tpu_torch.api import Brisk
 from brisk_tpu_torch.index import sklstore
 from brisk_tpu_torch.oracle import pyref
@@ -53,6 +55,60 @@ def test_kernel_matches_plain_version(device, k, m, b, R):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("k,m,b", [(31, 11, 8), (63, 21, 14), (63, 61, 1)])
+@pytest.mark.parametrize("R", [1000, 1024, 12288])
+def test_rowmajor_kernel_matches_plain_version(device, k, m, b, R):
+    """The row-major layout against sklstore._expand_span on the CPU
+    (the plain row-major version), on rows with any meta."""
+    (sb, sm, sn), s_max = _span(R, k, m, b, seed=R + k)
+    want, _ = sklstore._expand_span(sb, sm, sn, k, m, b, s_max)
+    before = dict(kernels.LAUNCHES)
+    got = kernels.expand_span(sb.to(device), sm.to(device), sn.to(device),
+                              k, m, b, s_max, layout="rowmajor")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["expand_span_rowmajor"] == (
+        before["expand_span_rowmajor"] + 1)
+    assert kernels.LAUNCHES["expand_span_jmajor"] == (
+        before["expand_span_jmajor"])
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("layout", ["jmajor", "rowmajor"])
+@pytest.mark.parametrize("garbage", [0.0, 0.05])
+@pytest.mark.parametrize("k,m,b", [(31, 11, 8), (63, 21, 14), (63, 61, 1)])
+def test_kernel_insert_shaped_and_mixed_rows(device, layout, garbage,
+                                             k, m, b):
+    """Insert-shaped rows (every live row regular: the kernel's per-row
+    super-k-mer path) and the same with 5% garbage meta, so one warp
+    mixes regular rows with rows on the per-slot path."""
+    sb, sm, sn, s_max = bench_expand.span_rows(8192, k, m, b, seed=k + m,
+                                               device="cpu", garbage=garbage)
+    want = bench_expand.plain(layout)(sb, sm, sn, k, m, b, s_max)
+    got = kernels.expand_span(sb.to(device), sm.to(device), sn.to(device),
+                              k, m, b, s_max, layout=layout)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("layout", ["jmajor", "rowmajor"])
+@pytest.mark.parametrize("R,offset", [(1001, 0), (1002, 0), (1027, 0),
+                                      (1024, 1), (1001, 3)])
+def test_kernel_ragged_and_misaligned_spans(device, layout, R, offset):
+    """R not a multiple of 4, and inputs that start off a 16-byte
+    boundary: the kernel's word-by-word store path."""
+    k, m, b = 31, 11, 8
+    sb, sm, sn, s_max = bench_expand.span_rows(R + offset, k, m, b, seed=R,
+                                               device="cpu", garbage=0.02)
+    sb, sm, sn = sb[offset:], sm[offset:], sn[:, offset:].contiguous()
+    want = bench_expand.plain(layout)(sb, sm, sn, k, m, b, s_max)
+    cols = []
+    for t in (sb, sm, sn):
+        buf = torch.empty(t.numel() + offset, dtype=torch.int32,
+                          device=device)
+        cols.append(buf[offset:].view(t.shape).copy_(t))
+    got = kernels.expand_span(*cols, k, m, b, s_max, layout=layout)
+    assert torch.equal(got.cpu(), want)
+
+
 def test_kernel_wrapper_checks(device):
     (sb, sm, sn), s_max = _span(1024, 31, 11, 8, seed=1)
     sb, sm, sn = sb.to(device), sm.to(device), sn.to(device)
@@ -60,6 +116,13 @@ def test_kernel_wrapper_checks(device):
         kernels.expand_span_jmajor(sb.long(), sm, sn, 31, 11, 8, s_max)
     with pytest.raises(ValueError):
         kernels.expand_span_jmajor(sb, sm, sn[:, ::2], 31, 11, 8, s_max)
+    with pytest.raises(ValueError, match="layout"):
+        kernels.expand_span(sb, sm, sn, 31, 11, 8, s_max, layout="J")
+    with pytest.raises(ValueError):
+        kernels.expand_span(sb, sm.cpu(), sn, 31, 11, 8, s_max,
+                            layout="rowmajor")
+    with pytest.raises(ValueError):
+        kernels.expand_span(sb, sm, sn, 31, 11, 8, 9, layout="rowmajor")
 
 
 @pytest.mark.parametrize("path", ["data/test.fa", "data/debug_test.fa"])
@@ -121,17 +184,20 @@ def test_k63_stream_on_card_matches_cpu(device, tmp_path):
 @pytest.mark.parametrize("k,m,b", [(31, 11, 8), (63, 21, 14)])
 def test_consolidate_all_on_card_matches_cpu(device, k, m, b):
     """Three finalized segments with cross-segment duplicates: the carry
-    path on the card (kernel, row-major transpose, 2^18 chunks, dead-row
-    drop) gives the CPU port's arena."""
+    path on the card (the row-major kernel, no transpose; 2^18 chunks,
+    dead-row drop) gives the CPU port's arena."""
     src = Brisk(Parameters(k, m, b), batch=16, window=128, device="cpu")
     for path in ("data/test.fa", "data/debug_test.fa", "data/test.fa"):
         src.insert_file(path)
         src.finalize()
     cols = sklstore.to_numpy(src.skl)
     cpu = sklstore.consolidate_all(sklstore.from_numpy(cols, "cpu"), k, m, b)
-    before = kernels.LAUNCHES["expand_span_jmajor"]
+    before = dict(kernels.LAUNCHES)
     card = sklstore.consolidate_all(sklstore.from_numpy(cols, device),
                                     k, m, b)
-    assert kernels.LAUNCHES["expand_span_jmajor"] == before + 1
+    assert kernels.LAUNCHES["expand_span_rowmajor"] == (
+        before["expand_span_rowmajor"] + 1)
+    assert kernels.LAUNCHES["expand_span_jmajor"] == (
+        before["expand_span_jmajor"])
     assert int(card.n_rows) < cols["n_rows"]
     _assert_rows_equal(_rows(cpu), _rows(card))
