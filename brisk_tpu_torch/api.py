@@ -20,9 +20,9 @@ consolidates duplicate k-mer counts, scalar gets probe one bucket's rows
 from a host copy, batch queries run a sort-merge join against a
 transient expansion. KFF export is io.kff.
 
-Not ported yet (ROADMAP §1): the generic payload API (brisk_tpu.data_api)
-and the sharded facade (brisk_tpu.parallel); the port has no module for
-either.
+The generic-payload index (`Brisk<DATA>`) is data_api.BriskData. Not
+ported yet (ROADMAP §1): the sharded facade (brisk_tpu.parallel); the
+port has no module for it.
 """
 
 import os
@@ -52,6 +52,29 @@ def _device(device) -> torch.device:
                            "available (pass device='cpu' to index on the "
                            "host)")
     return dev
+
+
+def end_states(em, ve, lanes, k: int, m: int) -> list:
+    """Exact per-lane machine-state 7-tuples (MinimizerState order) at
+    each lane's OWN valid_end `ve[i]`, from a carry-path enumeration; heavy
+    is re-derived from the minimizer's decycling class."""
+    km = k - m
+    margin = k - 1
+    dede = pyref.get_decycling(m)
+    f_lo, f_hi, f_rc, f_mi, f_hh, f_hl = (
+        x.cpu().numpy() for x in (em.mini_lo, em.mini_hi, em.use_rc,
+                                  em.mini_idx, em.hash_hi, em.hash_lo))
+    out = []
+    for i in lanes:
+        idx = int(ve[i]) - margin - 1
+        rev = bool(f_rc[i, idx])
+        mi = int(f_mi[i, idx])
+        mini = (int(f_hi[i, idx]) << 32) | int(f_lo[i, idx])
+        out.append((int(f_lo[i, idx]), int(f_hi[i, idx]),
+                    (km - mi) if rev else mi, rev,
+                    dede.mem_double(mini), int(f_hh[i, idx]),
+                    int(f_hl[i, idx])))
+    return out
 
 
 class Brisk:
@@ -538,29 +561,7 @@ class Brisk:
         pos = torch.arange(margin, margin + L_out, device=self.device)
         first_valid = pos[None, :] == vs1[:, None]
         self._append_skl_from_emissions(em, valid, first_valid, L_out)
-        return self._end_states(em, np.asarray([int(ve1[0])]), [0])[0]
-
-    def _end_states(self, em, ve, lanes):
-        """Exact per-lane machine-state 7-tuples at each lane's OWN ve;
-        heavy is re-derived from the minimizer's decycling class."""
-        p = self.params
-        km = p.k - p.m
-        margin = p.k - 1
-        dede = pyref.get_decycling(p.m)
-        f_lo, f_hi, f_rc, f_mi, f_hh, f_hl = (
-            x.cpu().numpy() for x in (em.mini_lo, em.mini_hi, em.use_rc,
-                                      em.mini_idx, em.hash_hi, em.hash_lo))
-        out = []
-        for i in lanes:
-            idx = int(ve[i]) - margin - 1
-            rev = bool(f_rc[i, idx])
-            mi = int(f_mi[i, idx])
-            mini = (int(f_hi[i, idx]) << 32) | int(f_lo[i, idx])
-            out.append((int(f_lo[i, idx]), int(f_hi[i, idx]),
-                        (km - mi) if rev else mi, rev,
-                        dede.mem_double(mini), int(f_hh[i, idx]),
-                        int(f_hl[i, idx])))
-        return out
+        return end_states(em, [int(ve1[0])], [0], p.k, p.m)[0]
 
     def _repair_skl_overflow(self, flush, j) -> None:
         """Re-run one certified lane's skl segmentation at full width."""
@@ -616,7 +617,7 @@ class Brisk:
         first_valid[:, 0] = True
         self._append_skl_from_emissions(em, valid, first_valid,
                                         valid.shape[1])
-        return self._end_states(em, ve, list(range(R)))
+        return end_states(em, ve, range(R), p.k, p.m)
 
     # -- finalization ------------------------------------------------------
 

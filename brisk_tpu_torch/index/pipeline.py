@@ -10,12 +10,16 @@ offset — no host read inside a flush.
 k > 32: one record per lane with the exact minimizer carry across
 batches (insert_stream_sklnative); the same row segmentation and dense
 append.
+
+Generic payloads: insert_windows_payload runs the windowed enumeration
+and certificate into an index.payload state, one (count, position)
+column per emission.
 """
 
 import torch
 
-from brisk_tpu_torch._u32 import INVALID, to_i32
-from brisk_tpu_torch.index import sklstore
+from brisk_tpu_torch._u32 import INVALID, M32, to_i32
+from brisk_tpu_torch.index import payload, sklstore, store
 from brisk_tpu_torch.ops import enumerate as enum_ops
 from brisk_tpu_torch.ops.minimizer import MinimizerState
 
@@ -179,3 +183,44 @@ def insert_stream_sklnative(skl, codes: torch.Tensor, fresh: torch.Tensor,
                                                         & (ve_i > 0)).sum()
         n_km = n_km + em.valid.sum()
     return skl, n_sk, n_km, carry, skl.n_rows.clone()
+
+
+def insert_windows_payload(state, codes: torch.Tensor,
+                           valid_start: torch.Tensor,
+                           valid_end: torch.Tensor, pos0: torch.Tensor,
+                           chain, k: int, m: int, b: int, width: int):
+    """Sequence-parallel windowed insert into a generic payload state
+    (index.payload): per certified emission, lane 0 gets 1 (count) and
+    lanes 1.. get the k-mer's record position pos0[lane] + (p - margin),
+    masked to 32 bits; payload.compact's lane kinds merge them.
+
+    codes (S, B, L_buf) unpacked 2-bit codes; valid_start, valid_end and
+    pos0 (S, B), pos0 each window's first k-mer index within its record
+    (win * useful). The same window-continuity chain as the sklnative
+    insert. Returns (state', n_km, cert (S, B) bool, ends (MinimizerState
+    of (S, B) leaves), chain'). Precondition: state.n_used + S*B*(L_buf -
+    k + 1) <= capacity."""
+    S, B, L_buf = codes.shape
+    margin = k - 1
+    dev = codes.device
+    fresh = torch.ones(B, dtype=torch.bool, device=dev)
+    zero = enum_ops.zero_carry(B, dev)
+    rel = torch.arange(L_buf - margin, device=dev)[None, :]
+    n_km = torch.zeros((), dtype=torch.int64, device=dev)
+    certs, ends = [], []
+    for i in range(S):
+        vs_i = valid_start[i]
+        em, end = enum_ops.enumerate_batch(codes[i], fresh, valid_end[i],
+                                           zero, k, m, b, valid_start=vs_i)
+        exact, chain = _chain_exact(em, end, vs_i, chain, margin)
+        rows = store.make_keys(em.bucket.reshape(-1), em.key.reshape(4, -1),
+                               em.mini_idx.reshape(-1), k, b)
+        valid = (em.valid & exact[:, None]).reshape(-1)
+        pos = ((pos0[i].to(torch.int64)[:, None] + rel) & M32).reshape(-1)
+        vals = torch.stack([torch.ones_like(pos)] + [pos] * (width - 1))
+        state = payload.append(state, rows, vals, valid)
+        n_km = n_km + valid.sum()
+        certs.append(exact)
+        ends.append(end)
+    ends = MinimizerState(*(torch.stack(f) for f in zip(*ends)))
+    return state, n_km, torch.stack(certs), ends, chain

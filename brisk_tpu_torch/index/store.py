@@ -1,7 +1,8 @@
 """Packed per-k-mer keys and the per-k-mer log-structured state (port of
-brisk_tpu.index.store: the transient sorted view of the arena and the
-re-keying state of reallocate; `lookup`, `bucket_of` and `pack_key_np`
-serve the payload API and the sharded facade and come with them).
+brisk_tpu.index.store: the transient sorted view of the arena, the
+re-keying state of reallocate, and `pack_key_np` for the payload API's
+scalar keys; `lookup` and `bucket_of` serve the sharded facade and come
+with it).
 
 A packed key is the bit-field concatenation
     bucket(2b bits) | hashed_kmer(2k bits) | mini_idx(8 bits)
@@ -101,6 +102,15 @@ def make_key_words(bucket: torch.Tensor, key_limbs, mini_idx: torch.Tensor,
 def make_keys(bucket, key_limbs, mini_idx, k: int, b: int) -> torch.Tensor:
     """(W, N) int64 u32 big-endian key words."""
     return torch.stack(make_key_words(bucket, key_limbs, mini_idx, k, b))
+
+
+def pack_key_np(bucket: int, hashed_kmer: int, mini_idx: int, k: int,
+                b: int) -> np.ndarray:
+    """Host-side single-key packing (for scalar queries/tests)."""
+    W = key_words(k, b)
+    v = (bucket << (2 * k + 8)) | (hashed_kmer << 8) | mini_idx
+    return np.array([(v >> (32 * (W - 1 - w))) & 0xFFFFFFFF
+                     for w in range(W)], dtype=np.uint32)
 
 
 def unpack_keys_np(keys: np.ndarray, k: int, b: int):

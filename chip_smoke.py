@@ -26,6 +26,13 @@ is non-zero and no final `ok` line is printed):
    segments), lookups doubled, then consolidate() into one segment with
    the same distinct count and lookups; the kernel against its plain
    version at the consolidate's span shape.
+   payload: the generic-payload index (data_api.BriskData, width 2,
+   ("sum", "max"): count + last position) on the same 50 Mb at the
+   counter's geometry: n_emitted and the count lane's total, the
+   distinct count and 1,000 point lookups against the counter of phase
+   4; then BriskData on the card against the port on the CPU, bit for
+   bit, at k=31 (width 3) and k=63 through insert_file (with repairs),
+   update, reallocate and save -> load. This path launches no kernel.
 6. k63-deploy: k=63 m=21 b=14 on 4.6 Mb of 10 kb records (the streaming
    insert), then save/load, KFF export and read-back, query_file and
    reallocate; the kernel at the finalize's span shape.
@@ -59,6 +66,13 @@ K63_BASES = 4_600_000
 EXPECT_K63_KMERS = 4_542_816        # 10 kb records (BENCH_r05 k63_nb_kmers)
 EXPECT_K63_SHORT_KMERS = 2_681_840  # 150 bp reads (k63_shortread_nb_kmers)
 N_LOOKUPS = 10_000
+N_PAYLOAD_GETS = 1_000
+# BriskData on the card against the CPU port: (k, m, b), bases, kinds,
+# geometry
+PAYLOAD_PARITY = (((K, M, B), 200_000, ("sum", "max", "min"),
+                   dict(batch=64, window=64, stack=4)),
+                  (K63, 30_000, ("sum", "max"),
+                   dict(batch=64, window=256, stack=4)))
 # (k, m, b) and span sizes of phase 2's small and ragged spans; (63,61,1)
 # gives s_max 5, the others 8
 KERNEL_SPANS = (((K, M, B), (1000, 1001, 1024, 12288)),
@@ -372,8 +386,10 @@ def phase_deployment(dev, tmp: str) -> dict:
     check(n["jmajor"] > 0 and n["rowmajor"] > 0,
           f"the main path did not launch both layouts: {n}")
     say("deploy-memory", peak_gib=peak_gib(dev), launches=n)
+    # orientation-sensitive counts for the payload phase's point lookups
+    direct = idx.get_many(sample[:N_PAYLOAD_GETS])
     return dict(launches=n, idx=idx, path=path, sample=sample, got=got,
-                nb_kmers=st["nb_kmers"])
+                direct=direct, nb_kmers=st["nb_kmers"])
 
 
 def phase_consolidate(dev, dep: dict) -> dict:
@@ -429,6 +445,148 @@ def phase_consolidate(dev, dep: dict) -> dict:
     say("kernel", at="consolidate", k=K, R=R, exact=True,
         **{key: v for key, v in res.items() if key != "R"})
     return dict(launches=n, kernel=res)
+
+
+def phase_payload(dev, dep: dict) -> None:
+    """BriskData (count, last position) on the deployment's 50 Mb at the
+    counter's geometry, held to the counter of phase 4."""
+    import torch
+    from brisk_tpu_torch._u32 import to_u32
+    from brisk_tpu_torch.data_api import BriskData
+    from brisk_tpu_torch.index import payload
+    from brisk_tpu_torch.params import Parameters
+    bd = BriskData(Parameters(K, M, B), width=2, kinds=("sum", "max"),
+                   batch=2048, window=512, stack=8, device=dev)
+    comp = {"n": 0, "s": 0.0}
+    compact = payload.compact
+
+    def timed_compact(state, kinds):
+        sync(dev)
+        t = time.perf_counter()
+        out = compact(state, kinds)
+        sync(dev)
+        comp["n"] += 1
+        comp["s"] += time.perf_counter() - t
+        return out
+
+    reset_peak(dev)
+    reset_launches()
+    payload.compact = timed_compact
+    try:
+        t = time.perf_counter()
+        bd.insert_file(dep["path"])
+        sync(dev)
+        insert_s = time.perf_counter() - t
+        n_insert_compactions, insert_compact_s = comp["n"], comp["s"]
+        bd.compact()
+    finally:
+        payload.compact = compact
+    st = bd.state
+    n = st.n_sorted
+    lane0 = int(to_u32(st.data[0, :n]).sum())
+    say("payload-insert", insert_s=insert_s,
+        compactions_in_insert=n_insert_compactions,
+        insert_compact_s=insert_compact_s, compactions=comp["n"],
+        compact_s=comp["s"], final_compact_s=comp["s"] - insert_compact_s,
+        n_emitted=bd.n_emitted, lane0_total=lane0, n_sorted=n,
+        n_repaired_windows=bd.n_repaired_windows,
+        capacity=st.keys.shape[1],
+        bytes_per_entry=(bd.W + bd.width) * 4 * st.keys.shape[1] / n,
+        peak_gib=peak_gib(dev), expand_span_launches=launches())
+    check(bd.n_emitted == EXPECT_KMERS,
+          f"payload n_emitted {bd.n_emitted} != {EXPECT_KMERS}")
+    check(lane0 == EXPECT_KMERS, f"payload lane-0 total {lane0}")
+    check(n == dep["nb_kmers"],
+          f"payload n_sorted {n} != counter nb_kmers {dep['nb_kmers']}")
+    check(st.keys.device.type == dev.type, "payload state not on the card")
+    check(launches() == 0, "the payload path launched a kernel")
+    sample = dep["sample"][:N_PAYLOAD_GETS]
+    t = time.perf_counter()
+    got = [bd.get(s) for s in sample]
+    get_s = time.perf_counter() - t
+    for s, g, c in zip(sample, got, dep["direct"]):
+        check((g is None) == (c is None)
+              and (g is None or g[0] % 256 == c),
+              f"payload get({s}) = {g}, counter {c}")
+    say("payload-get", sampled=len(sample),
+        found=sum(g is not None for g in got), get_s=get_s,
+        agrees_with_counter=True)
+    del bd, st
+    torch.cuda.empty_cache()
+
+
+def phase_payload_parity(dev, tmp: str) -> None:
+    """BriskData on the card against the port on the CPU, arrays equal
+    after insert_file (a file that needs repairs), update, reallocate
+    and save -> load."""
+    import numpy as np
+    from brisk_tpu_torch.data_api import BriskData
+    from brisk_tpu_torch.index import payload
+    from brisk_tpu_torch.oracle import pyref
+    from brisk_tpu_torch.params import Parameters
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from make_synth_fasta import write_synth
+    rep = os.path.join(tmp, "repair_rec.fa")
+    repair_fixture(rep)
+    with open(rep) as fh:
+        repair_rec = fh.read()
+    for (k, m, b), bases, kinds, geo in PAYLOAD_PARITY:
+        path = os.path.join(tmp, f"payload_k{k}.fa")
+        write_synth(path, bases, read_len=SYNTH_READ, seed=SYNTH_SEED + k)
+        with open(path, "a") as fh:
+            fh.write(repair_rec)
+        built = [BriskData(Parameters(k, m, b), width=len(kinds),
+                           kinds=kinds, device=d, **geo)
+                 for d in ("cpu", dev)]
+        times = {}
+
+        def same(step):
+            a, c = (payload.to_numpy(bd.state) for bd in built)
+            for f in ("keys", "data", "n_sorted", "n_used"):
+                check(np.array_equal(a[f], c[f]),
+                      f"payload k={k} {step}: {f} differs card vs CPU")
+            check(built[0].n_emitted == built[1].n_emitted
+                  and built[0].n_repaired_windows
+                  == built[1].n_repaired_windows,
+                  f"payload k={k} {step}: counters differ card vs CPU")
+
+        def run(step, fn):
+            for bd, d in zip(built, ("cpu", "card")):
+                t = time.perf_counter()
+                fn(bd)
+                sync(bd.device)
+                times[f"{step}_{d}_s"] = round(time.perf_counter() - t, 3)
+            same(step)
+
+        run("insert", lambda bd: bd.insert_file(path))
+        n_repaired = built[1].n_repaired_windows
+        check(n_repaired > 0, f"payload k={k}: no window repaired")
+        entries = list(built[0].items())  # items() compacts both
+        check(list(built[1].items()) == entries,
+              f"payload k={k}: items() differ card vs CPU")
+        same("compact")
+        kmers = [pyref.num2str(v, k) for v, _ in entries[::997]]
+        kmers.append("ACGT" * (k // 4) + "ACG"[:k % 4])
+        vals = np.array([[3] * len(kmers)] + [list(range(len(kmers)))]
+                        * (len(kinds) - 1), np.uint32)
+        run("update", lambda bd: bd.update(kmers, vals))
+        check([built[1].get(s) for s in kmers]
+              == [built[0].get(s) for s in kmers],
+              f"payload k={k}: get differs card vs CPU")
+        run("reallocate", lambda bd: bd.reallocate())
+        for i, d in enumerate(("cpu", dev)):
+            ckpt = os.path.join(tmp, f"payload_k{k}_{i}.npz")
+            built[i].save(ckpt)
+            built[i] = BriskData.load(ckpt, device=d)
+        check(built[1].state.keys.device.type == dev.type,
+              "payload load left the card")
+        same("save-load")
+        say("payload-parity", k=k, m=m, b=b, kinds="+".join(kinds),
+            bases=bases, entries=len(entries),
+            n_emitted=built[1].n_emitted,
+            n_repaired_windows=n_repaired,
+            steps="insert+update+reallocate+save-load", bit_exact=True,
+            **times)
 
 
 def phase_k63_deploy(dev, tmp: str) -> dict:
@@ -642,8 +800,12 @@ def main() -> int:
         dep = phase_deployment(dev, tmp)
         con = phase_consolidate(dev, dep)
         dep_launches = dict(launches=dep["launches"])
+        counter = {key: dep[key] for key in ("path", "sample", "direct",
+                                             "nb_kmers")}
         del dep
         torch.cuda.empty_cache()
+        phase_payload(dev, counter)
+        phase_payload_parity(dev, tmp)
         k63 = phase_k63_deploy(dev, tmp)
         torch.cuda.empty_cache()
         short = phase_k63_short(dev, tmp)

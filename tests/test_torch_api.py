@@ -103,8 +103,8 @@ def test_jax_checkpoint_loads_into_port(tmp_path):
 
 def test_unported_entry_points_raise(tmp_path):
     """The entry points the first slice left out now run (k > 32 insert,
-    consolidate, reallocate, save); the two APIs still to port have no
-    module in the port."""
+    consolidate, reallocate, save), the payload API imports, and the
+    sharded facade still to port has no module in the port."""
     import importlib
     seq = "ACGTTGCAACGGATTC" * 12
     tb = TBrisk(Parameters(63, 21, 14), batch=4, window=128, device="cpu")
@@ -120,9 +120,9 @@ def test_unported_entry_points_raise(tmp_path):
     tb.save(str(tmp_path / "idx.npz"))
     assert TBrisk.load(str(tmp_path / "idx.npz"),
                        device="cpu").counts_dict() == want
-    for mod in ("data_api", "parallel"):
-        with pytest.raises(ModuleNotFoundError):
-            importlib.import_module("brisk_tpu_torch." + mod)
+    assert importlib.import_module("brisk_tpu_torch.data_api").BriskData
+    with pytest.raises(ModuleNotFoundError):
+        importlib.import_module("brisk_tpu_torch.parallel")
 
 
 def test_segmented_finalize_matches_oracle():

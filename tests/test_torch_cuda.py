@@ -4,7 +4,8 @@ insert-shaped and mixed rows, ragged and misaligned spans), a small
 index on the card
 against the pure-Python oracle, and the k = 63 streaming insert and
 consolidate_all on the card against the port on the CPU, array for
-array. They skip on a machine without a card.
+array, as are the payload store (index.payload) and BriskData. They
+skip on a machine without a card.
 This file imports no jax; on the card's machine (which has no jax) run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -201,3 +202,86 @@ def test_consolidate_all_on_card_matches_cpu(device, k, m, b):
         before["expand_span_jmajor"])
     assert int(card.n_rows) < cols["n_rows"]
     _assert_rows_equal(_rows(cpu), _rows(card))
+
+
+def _payload_columns(rng, W, D, n, n_distinct):
+    """Random payload columns: duplicates, ~10% INVALID tombstones, lanes
+    on both sides of 2^31 and near 2^32."""
+    pool = rng.integers(0, 1 << 32, (W, n_distinct), dtype=np.uint64)
+    pool[0] >>= 1
+    keys = pool[:, rng.integers(0, n_distinct, n)].astype(np.uint32)
+    keys[:, rng.random(n) < 0.1] = 0xFFFFFFFF
+    data = rng.integers((1 << 32) - (1 << 20), 1 << 32, (D, n),
+                        dtype=np.uint64).astype(np.uint32)
+    data[:, ::3] = rng.integers(0, 1 << 31, (D, data[:, ::3].shape[1]))
+    return keys, data
+
+
+@pytest.mark.parametrize("W,kinds", [(3, ("sum", "max")),
+                                     (6, ("sum", "max", "min"))])
+def test_payload_compact_lookup_on_card_matches_cpu(device, W, kinds):
+    """payload.compact and lookup on the card give the CPU's arrays on
+    random states (sums past 2^32, max/min across 2^31)."""
+    from brisk_tpu_torch.index import payload
+    rng = np.random.default_rng(W)
+    D = len(kinds)
+    keys, data = _payload_columns(rng, W, D, 200_000, 50_000)
+    states = []
+    for dev in ("cpu", device):
+        st = payload.from_numpy(keys, data, 0, keys.shape[1], dev)
+        st = payload.ensure_room(st, 1000)
+        states.append(payload.compact(st, kinds))
+    cpu, card = (payload.to_numpy(s) for s in states)
+    for f in ("keys", "data", "n_sorted", "n_used"):
+        np.testing.assert_array_equal(card[f], cpu[f], err_msg=f)
+    q = np.concatenate([keys[:, ::7], rng.integers(
+        0, 1 << 31, (W, 5000)).astype(np.uint32)], axis=1)
+    (cf, cv), (gf, gv) = (payload.lookup(s, torch.from_numpy(
+        q.view(np.int32).copy()).to(s.keys.device)) for s in states)
+    assert torch.equal(gf.cpu(), cf) and torch.equal(gv.cpu(), cv)
+    assert bool(cf.any()) and not bool(cf.all())
+
+
+@pytest.mark.parametrize("k,m,b,width", [(31, 11, 8, 2), (31, 11, 8, 3),
+                                         (63, 21, 14, 2)])
+def test_brisk_data_on_card_matches_cpu(device, tmp_path, k, m, b, width):
+    """BriskData on the card equals the CPU port on data/debug_test.fa
+    after insert_file, update, reallocate and save -> load."""
+    from brisk_tpu_torch.data_api import BriskData
+    from brisk_tpu_torch.index import payload
+    kinds = ("sum", "max", "min")[:width]
+    built = [BriskData(Parameters(k, m, b), width=width, kinds=kinds,
+                       batch=16, window=128, stack=2, device=dev)
+             for dev in ("cpu", device)]
+
+    def same():
+        a, c = (payload.to_numpy(bd.state) for bd in built)
+        for f in ("keys", "data", "n_sorted", "n_used"):
+            np.testing.assert_array_equal(c[f], a[f], err_msg=f)
+        assert built[0].n_emitted == built[1].n_emitted
+        assert built[0].n_repaired_windows == built[1].n_repaired_windows
+
+    for bd in built:
+        bd.insert_file("data/debug_test.fa")
+    same()
+    entries = [list(bd.items()) for bd in built]  # compacts both
+    assert entries[1] == entries[0]
+    same()
+    kmers = [pyref.num2str(v, k) for v, _ in entries[0][::400]]
+    kmers.append("ACGT" * (k // 4) + "ACG"[:k % 4])
+    vals = np.array([[3] * len(kmers)] + [list(range(len(kmers)))]
+                    * (width - 1), np.uint32)
+    for bd in built:
+        bd.update(kmers, vals)
+    same()
+    assert [built[1].get(s) for s in kmers] == [built[0].get(s)
+                                                for s in kmers]
+    for bd in built:
+        bd.reallocate()
+    same()
+    for i, dev in enumerate(("cpu", device)):
+        path = str(tmp_path / f"pl{i}.npz")
+        built[i].save(path)
+        built[i] = BriskData.load(path, device=dev)
+    assert built[1].state.keys.device.type == torch.device(device).type
+    same()

@@ -63,6 +63,20 @@ def test_key_batch_matches(k, m, b):
     np.testing.assert_array_equal(tc, jc)
 
 
+@pytest.mark.parametrize("k,b", [(31, 8), (63, 14), (21, 6)])
+def test_pack_key_np_matches(k, b):
+    rng = np.random.default_rng(k + b)
+    for _ in range(50):
+        bucket = int(rng.integers(0, 1 << (2 * b)))
+        kmer = int(rng.integers(0, 1 << 62)) << max(0, 2 * k - 62)
+        kmer &= (1 << (2 * k)) - 1
+        mini = int(rng.integers(0, 256))
+        got = t_store.pack_key_np(bucket, kmer, mini, k, b)
+        want = j_store.pack_key_np(bucket, kmer, mini, k, b)
+        assert got.dtype == want.dtype == np.uint32
+        np.testing.assert_array_equal(got, want)
+
+
 def test_entries_u64_matches():
     rng = np.random.default_rng(2)
     codes = rng.integers(0, 4, (500, 31), dtype=np.uint8)
@@ -113,6 +127,9 @@ def _imported_modules(tree):
 def test_port_never_imports_jax_or_the_jax_package():
     files = _port_sources()
     assert len(files) > 15
+    for mod in ("data_api.py", os.path.join("index", "payload.py"),
+                os.path.join("index", "pipeline.py")):
+        assert os.path.join(PKG, mod) in files, mod
     for f in files + [os.path.join(os.path.dirname(PKG), "chip_smoke.py")]:
         with open(f) as fh:
             tree = ast.parse(fh.read())
