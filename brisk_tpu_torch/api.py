@@ -20,9 +20,8 @@ consolidates duplicate k-mer counts, scalar gets probe one bucket's rows
 from a host copy, batch queries run a sort-merge join against a
 transient expansion. KFF export is io.kff.
 
-The generic-payload index (`Brisk<DATA>`) is data_api.BriskData. Not
-ported yet (ROADMAP §1): the sharded facade (brisk_tpu.parallel); the
-port has no module for it.
+The generic-payload index (`Brisk<DATA>`) is data_api.BriskData; the
+sharded index is parallel.facade.ShardedBrisk.
 """
 
 import os

@@ -1,5 +1,6 @@
 """Compacted super-k-mer storage — the SKL arena (port of
-brisk_tpu.index.sklstore, the subset the single-device Brisk runs).
+brisk_tpu.index.sklstore, the subset the single-device Brisk and the
+sharded facade run).
 
 Each super-k-mer is stored ONCE as fixed-width columns:
 
@@ -22,7 +23,11 @@ Duplicates split across chunks keep partial counts; every reader sums
 per key, so totals stay exact. `consolidate_all` re-consolidates the
 whole arena with the counts carried (merging duplicates across
 segments onto one slot, dropping dead rows); `from_entries` rebuilds an
-arena of size-1 rows from a per-k-mer state (after reallocate).
+arena of size-1 rows from a per-k-mer state (after reallocate). Reads:
+`probe` (one bucket's rows expanded row-major on the arena's device),
+`probe_np` (the same from a host copy), and the sort-merge joins
+`query_join_total` (against a query arena) and `query_join_keys_total`
+(against query packed keys).
 """
 
 from typing import NamedTuple, Tuple
@@ -543,6 +548,79 @@ def fetch_rows(arr: torch.Tensor, start: int, n: int) -> np.ndarray:
     return to_np(arr[..., start:start + n])
 
 
+# -- serving lookups from the finalized arena on its device ---------------
+
+def bucket_slice(state: SklState, bucket_id: int, segments=None,
+                 bucket_col: np.ndarray = None):
+    """Row ranges [(lo, hi)] of one bucket across the arena's
+    bucket-grouped segments (host binary search on the bucket column).
+    `segments` lists the (lo, hi) row ranges that are each bucket-sorted
+    (one per finalize); None means one segment over every finalized row.
+    `bucket_col` is an optional host copy of the bucket column; without
+    it every call copies the column from the device."""
+    n = int(state.n_fin_rows)
+    if segments is None:
+        segments = [(0, n)]
+    if bucket_col is None:
+        bucket_col = fetch_rows(state.bucket, 0, n)
+    needle = np.uint32(bucket_id)  # see probe_np
+    out = []
+    for lo, hi in segments:
+        seg = bucket_col[lo:hi]
+        l = lo + int(np.searchsorted(seg, needle, side="left"))
+        h = lo + int(np.searchsorted(seg, needle, side="right"))
+        if h > l:
+            out.append((l, h))
+    return out
+
+
+def probe(state: SklState, packed_cols: np.ndarray, bucket_id: int,
+          k: int, m: int, b: int, segments=None,
+          bucket_col: np.ndarray = None):
+    """Count lookup for a few packed keys known to live in one bucket
+    (reference find_kmer, buckets.hpp:499-519): expand just that bucket's
+    rows (every segment) with the row-major span expansion on the
+    arena's device (the CUDA kernel on the card) and sum the counts of
+    the matching slots. The matching slots' counts partition a key's
+    true count, so summing is exact. packed_cols (W, Q) uint32. Returns
+    (found (Q,) bool, counts (Q,) uint32)."""
+    cs, s_max, _, nw = skl_dims(k, m, b)
+    ranges = bucket_slice(state, bucket_id, segments, bucket_col)
+    Q = packed_cols.shape[1]
+    found = np.zeros(Q, bool)
+    counts = np.zeros(Q, np.uint64)
+    if not ranges:
+        return found, counts.astype(np.uint32)
+    dev = state.bucket.device
+    q = from_np(packed_cols, dev)
+    for lo, hi in ranges:
+        R = hi - lo
+        Rp = 1 << max(4, (R - 1).bit_length())  # pad to a few shapes
+        sb = torch.full((Rp,), -1, dtype=torch.int32, device=dev)
+        sm = torch.zeros(Rp, dtype=torch.int32, device=dev)
+        sn = torch.zeros((nw, Rp), dtype=torch.int32, device=dev)
+        sb[:R] = state.bucket[lo:hi]
+        sm[:R] = state.meta[lo:hi]
+        sn[:, :R] = state.nucs[:, lo:hi]
+        # row-major slot r*s_max + j; dead slots INVALID, so ok is the
+        # reference's per-slot validity
+        keys, ok = _expand_span(sb, sm, sn, k, m, b, s_max)
+        idx = (to_u32(state.offs[lo:hi])[:, None]
+               + torch.arange(s_max, device=dev)).clamp_(
+                   max=state.data.shape[0] - 1)
+        cnt = torch.zeros((Rp, s_max), dtype=torch.int64, device=dev)
+        cnt[:R] = to_u32(state.data[idx])
+        cnt = torch.where(ok, cnt.reshape(-1), 0)
+        eq = ok[None, :].expand(Q, -1).clone()
+        for i in range(keys.shape[0]):
+            eq &= keys[i][None, :] == q[i][:, None]
+        hit = torch.stack([eq.any(1).to(torch.int64),
+                           (eq * cnt[None, :]).sum(1)]).cpu().numpy()
+        found |= hit[0].astype(bool)
+        counts += hit[1].astype(np.uint64)
+    return found, counts.astype(np.uint32)
+
+
 # -- serving lookups from a host copy of the finalized arena --------------
 
 def host_cache(state: SklState) -> dict:
@@ -782,6 +860,30 @@ def query_join_total(state: SklState, qstate_box: list,
     for start in range(0, Sq, CQ):
         qc = qk[:, start:start + CQ]
         ql = qcnt[start:start + CQ]
+        pad = CQ - qc.shape[1]
+        if pad:
+            qc = torch.cat([qc, qc.new_full((qc.shape[0], pad), -1)], 1)
+            ql = torch.cat([ql, ql.new_zeros(pad)])
+        total += int(_query_join_partials(ik, icnt, qc, ql).sum())
+    return total
+
+
+def query_join_keys_total(state: SklState, qk: torch.Tensor,
+                          qlive: torch.Tensor, k: int, m: int, b: int,
+                          chunk: int = 1 << 26) -> int:
+    """Total stored count over a batch of query PACKED KEYS against a
+    FINALIZED arena — the shadow-index-free query: the caller enumerates
+    the query straight to packed keys, no second arena is built. qk (W,
+    Sq) int32 (u32 bit patterns) on the arena's device, qlive (Sq,) bool.
+    Chunked over the query slots at a bounded set of widths, each chunk
+    padded with INVALID keys, to bound peak device memory."""
+    ik, icnt = expand_for_join(state, k, m, b)
+    Sq = qk.shape[1]
+    CQ = min(_shape_family(max(Sq, 1)), chunk)
+    total = 0
+    for start in range(0, Sq, CQ):
+        qc = qk[:, start:start + CQ]
+        ql = qlive[start:start + CQ].to(torch.int64)
         pad = CQ - qc.shape[1]
         if pad:
             qc = torch.cat([qc, qc.new_full((qc.shape[0], pad), -1)], 1)

@@ -33,6 +33,19 @@ is non-zero and no final `ok` line is printed):
    4; then BriskData on the card against the port on the CPU, bit for
    bit, at k=31 (width 3) and k=63 through insert_file (with repairs),
    update, reallocate and save -> load. This path launches no kernel.
+   sharded: the sharded facade (parallel.facade.ShardedBrisk, 8 shards
+   on the one card) on the same 50 Mb at the counter's geometry (8 x 256
+   lanes, window 512, stack 8): n_emitted and the shadow-free query_file
+   total, the distinct count and 1,000 get_canonical calls against the
+   counter of phase 4, the kernel against its plain version at one
+   shard's finalize span; a forced spill (skl_route_cap 2) on 1 Mb whose
+   counts_dict equals a Brisk's; then the facade on the card against
+   the same facade on the CPU, every per-shard arena array, at k=31
+   (200 kb) and k=63 (30 kb), each with the repair fixture's record,
+   through insert_file, finalize, reallocate and save -> load; the CPU
+   half runs in a child process (`--sharded-cpu-reference`, started
+   before the sharded phase and stopped with the smoke) beside the
+   card's phases.
 6. k63-deploy: k=63 m=21 b=14 on 4.6 Mb of 10 kb records (the streaming
    insert), then save/load, KFF export and read-back, query_file and
    reallocate; the kernel at the finalize's span shape.
@@ -73,6 +86,18 @@ PAYLOAD_PARITY = (((K, M, B), 200_000, ("sum", "max", "min"),
                    dict(batch=64, window=64, stack=4)),
                   (K63, 30_000, ("sum", "max"),
                    dict(batch=64, window=256, stack=4)))
+# ShardedBrisk: 8 shards on the one card at the counter's geometry (B =
+# 8 x 256 = 2048 lanes); the forced-spill run; card against CPU
+SHARDED_GEOMETRY = dict(n_devices=8, batch_per_shard=256, window=512,
+                        stack=8)
+N_SHARDED_GETS = 1_000
+SPILL_BASES = 1_000_000
+SPILL_GEOMETRY = dict(n_devices=8, batch_per_shard=64, window=512, stack=4)
+SHARDED_PARITY = (((K, M, B), 200_000,
+                   dict(n_devices=8, batch_per_shard=8, window=64,
+                        stack=4)),
+                  (K63, 30_000, dict(n_devices=8, batch_per_shard=8,
+                                     window=256, stack=4)))
 # (k, m, b) and span sizes of phase 2's small and ragged spans; (63,61,1)
 # gives s_max 5, the others 8
 KERNEL_SPANS = (((K, M, B), (1000, 1001, 1024, 12288)),
@@ -589,6 +614,242 @@ def phase_payload_parity(dev, tmp: str) -> None:
             **times)
 
 
+def phase_sharded(dev, dep: dict) -> dict:
+    """ShardedBrisk, 8 shards on the one card, on the deployment's 50 Mb
+    at the counter's geometry (batch 8 x 256 = 2048, window 512, stack
+    8), held to the counter of phase 4; the kernel against its plain
+    version at one shard's finalize span."""
+    import torch
+    from brisk_tpu_torch.index import sklstore
+    from brisk_tpu_torch.params import Parameters
+    from brisk_tpu_torch.parallel.facade import ShardedBrisk
+    sb = ShardedBrisk(Parameters(K, M, B), device=dev, **SHARDED_GEOMETRY)
+    reset_peak(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    sb.insert_file(dep["path"])
+    sync(dev)
+    t1 = time.perf_counter()
+    sb.finalize()
+    sync(dev)
+    t2 = time.perf_counter()
+    fin = layout_launches()
+    rows = [int(x) for x in sb.skl.n_rows]
+    say("sharded-insert", n_shards=sb.n_shards, insert_s=t1 - t0,
+        finalize_s=t2 - t1, n_emitted=sb.n_emitted, n_spilled=sb.n_spilled,
+        n_repaired_windows=sb.n_repaired_windows,
+        n_skl_overflows=sb.n_skl_overflows, rows_per_shard=rows,
+        rcap=sb.skl.bucket.shape[1], route_cap=sb.skl_route_cap,
+        kmers_per_s=sb.n_emitted / (t2 - t0), finalize_launches=fin)
+    check(sb.n_emitted == EXPECT_KMERS,
+          f"sharded n_emitted {sb.n_emitted} != {EXPECT_KMERS}")
+    check(fin["jmajor"] >= sb.n_shards,
+          "sharded finalize did not launch the kernel on every shard")
+    check(sb.skl.bucket.device.type == dev.type, "arenas not on the card")
+    t = time.perf_counter()
+    st = sb.stats()
+    stats_s = time.perf_counter() - t
+    check(st["nb_kmers"] == dep["nb_kmers"],
+          f"sharded nb_kmers {st['nb_kmers']} != counter {dep['nb_kmers']}")
+    rm0 = launches("rowmajor")
+    joins = {"s": 0.0}
+    join = sklstore.query_join_keys_total
+
+    def timed_join(*args, **kw):
+        sync(dev)
+        t = time.perf_counter()
+        out = join(*args, **kw)
+        sync(dev)
+        joins["s"] += time.perf_counter() - t
+        return out
+
+    sklstore.query_join_keys_total = timed_join
+    try:
+        t = time.perf_counter()
+        total = sb.query_file(dep["path"])
+        sync(dev)
+        query_s = time.perf_counter() - t
+    finally:
+        sklstore.query_join_keys_total = join
+    check(launches("rowmajor") - rm0 >= sb.n_shards,
+          "the sharded query did not expand every shard on the card")
+    check(total == EXPECT_KMERS,
+          f"sharded query_file total {total} != {EXPECT_KMERS}")
+    sample = dep["sample"][:N_SHARDED_GETS]
+    rm0 = launches("rowmajor")
+    t = time.perf_counter()
+    got = [sb.get_canonical(s) for s in sample]
+    get_s = time.perf_counter() - t
+    check(got == dep["got"][:N_SHARDED_GETS],
+          "sharded get_canonical != the counter's counts")
+    check(launches("rowmajor") > rm0, "the probes launched no kernel")
+    n = layout_launches()
+    say("sharded-read", stats_s=stats_s, nb_kmers=st["nb_kmers"],
+        index_bytes=st["index_bytes"], bytes_per_kmer=st["bytes_per_kmer"],
+        query_s=query_s, query_join_s=joins["s"], query_total=total,
+        gets=len(sample), get_s=get_s,
+        found=sum(c is not None for c in got), peak_gib=peak_gib(dev),
+        launches=n)
+    # the kernel at the span one shard's finalize handed it
+    s_max = sklstore.skl_dims(K, M, B)[1]
+    R = sklstore._shape_family(rows[0], floor=1 << 10)
+    span = (sb.skl.bucket[0, :R].contiguous(),
+            sb.skl.meta[0, :R].contiguous(),
+            sb.skl.nucs[0, :, :R].contiguous())
+    del sb
+    torch.cuda.empty_cache()
+    res = kernel_vs_plain(*span, K, M, B, s_max, timed=True)
+    say("kernel", at="sharded-finalize", k=K, R=R, exact=True,
+        **{key: v for key, v in res.items() if key != "R"})
+    return dict(launches=n, kernel=res)
+
+
+def phase_sharded_spill(dev, tmp: str) -> None:
+    """A forced spill (skl_route_cap 2) on ~1 Mb: rows past two per
+    destination stay on their source shard; counts_dict equals a port
+    Brisk's on the same file."""
+    from brisk_tpu_torch.api import Brisk
+    from brisk_tpu_torch.params import Parameters
+    from brisk_tpu_torch.parallel.facade import ShardedBrisk
+    path = os.path.join(tmp, "spill.fa")
+    write_input(path, SPILL_BASES, SYNTH_READ)
+    sb = ShardedBrisk(Parameters(K, M, B), device=dev, skl_route_cap=2,
+                      **SPILL_GEOMETRY)
+    t = time.perf_counter()
+    sb.insert_file(path)
+    sync(dev)
+    insert_s = time.perf_counter() - t
+    got = sb.counts_dict()
+    ref = Brisk(Parameters(K, M, B), batch=512, window=512, stack=4,
+                device=dev)
+    ref.insert_file(path)
+    check(sb.n_spilled > 0, "skl_route_cap=2 spilled nothing")
+    check(got == ref.counts_dict(), "spilled counts_dict != Brisk's")
+    check(sb.n_emitted == ref.n_emitted, "spilled n_emitted != Brisk's")
+    say("sharded-spill", bases=SPILL_BASES, n_spilled=sb.n_spilled,
+        n_emitted=sb.n_emitted, kmers=len(got), insert_s=insert_s,
+        exact=True)
+
+
+PARITY_STEPS = ("insert", "finalize", "reallocate", "save-load")
+PARITY_COUNTERS = ("n_emitted", "n_superkmers", "n_spilled",
+                   "n_repaired_windows", "n_skl_overflows")
+
+
+def sharded_parity_inputs(tmp: str) -> dict:
+    """k -> FASTA of SHARDED_PARITY: synthetic records, then the repair
+    fixture's record."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from make_synth_fasta import write_synth
+    rep = os.path.join(tmp, "repair_rec.fa")
+    repair_fixture(rep)
+    with open(rep) as fh:
+        repair_rec = fh.read()
+    paths = {}
+    for (k, _, _), bases, _ in SHARDED_PARITY:
+        paths[k] = os.path.join(tmp, f"sharded_k{k}.fa")
+        write_synth(paths[k], bases, read_len=SYNTH_READ,
+                    seed=SYNTH_SEED + k)
+        with open(paths[k], "a") as fh:
+            fh.write(repair_rec)
+    return paths
+
+
+def sharded_parity_run(device, tmp: str, kmb, geo, path: str):
+    """ShardedBrisk on `device` through PARITY_STEPS; yields (step,
+    snapshot, seconds), a snapshot being every shard-axis arena array
+    (numpy) and the host counters."""
+    import torch
+    from brisk_tpu_torch import _u32
+    from brisk_tpu_torch.index import sklstore
+    from brisk_tpu_torch.params import Parameters
+    from brisk_tpu_torch.parallel.facade import ShardedBrisk
+    dev = torch.device(device)
+    sb = ShardedBrisk(Parameters(*kmb), device=dev, **geo)
+    ckpt = os.path.join(tmp, f"sharded_k{kmb[0]}_{dev.type}.npz")
+    for step in PARITY_STEPS:
+        t = time.perf_counter()
+        if step == "insert":
+            sb.insert_file(path)
+        elif step == "finalize":
+            sb.finalize()
+        elif step == "reallocate":
+            sb.reallocate()
+        else:
+            sb.save(ckpt)
+            sb = ShardedBrisk.load(ckpt, device=dev, **geo)
+        sync(dev)
+        seconds = time.perf_counter() - t
+        check(sb.skl.bucket.device.type == dev.type,
+              f"sharded {step} left {dev.type}")
+        # copies: the next step writes the arena in place
+        snap = {name: (_u32.to_np(x) if x.dtype.itemsize == 4
+                       else x.cpu().numpy()).copy()
+                for name, x in zip(sklstore.SklState._fields, sb.skl)}
+        snap.update({c: getattr(sb, c) for c in PARITY_COUNTERS})
+        yield step, snap, seconds
+
+
+def sharded_cpu_reference(tmp: str) -> None:
+    """The CPU half of phase_sharded_parity, run as a child process so it
+    overlaps the card's sharded phases: every step's snapshot to
+    `{tmp}/sharded_ref_k{k}_{step}.npz`."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, REPO)
+    torch.set_num_threads(4)
+    for (k, m, b), _, geo in SHARDED_PARITY:
+        path = os.path.join(tmp, f"sharded_k{k}.fa")
+        for step, snap, seconds in sharded_parity_run(
+                "cpu", tmp, (k, m, b), geo, path):
+            np.savez(os.path.join(tmp, f"sharded_ref_k{k}_{step}.npz"),
+                     seconds=seconds, **snap)
+
+
+def start_sharded_reference(tmp: str) -> subprocess.Popen:
+    """Write the parity inputs and start sharded_cpu_reference."""
+    sharded_parity_inputs(tmp)
+    with open(os.path.join(tmp, "sharded_ref.log"), "w") as log:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--sharded-cpu-reference", tmp], cwd=REPO, stdout=log,
+            stderr=subprocess.STDOUT, env=dict(os.environ, PYTHONPATH=REPO))
+
+
+def phase_sharded_parity(dev, tmp: str, ref: subprocess.Popen) -> None:
+    """ShardedBrisk on the card against the same facade on the CPU (the
+    child process `ref`), every per-shard arena array and counter equal
+    after insert_file (a file that needs repairs), finalize, reallocate
+    and save -> load."""
+    import numpy as np
+    card = {}
+    for (k, m, b), bases, geo in SHARDED_PARITY:
+        path = os.path.join(tmp, f"sharded_k{k}.fa")
+        card[k] = list(sharded_parity_run(dev, tmp, (k, m, b), geo, path))
+    t = time.perf_counter()
+    rc = ref.wait(timeout=900)
+    wait_s = time.perf_counter() - t
+    with open(os.path.join(tmp, "sharded_ref.log")) as fh:
+        check(rc == 0, f"the CPU reference exited {rc}:\n{fh.read()[-3000:]}")
+    for (k, m, b), bases, geo in SHARDED_PARITY:
+        times = {}
+        for step, got, seconds in card[k]:
+            want = np.load(os.path.join(tmp, f"sharded_ref_k{k}_{step}.npz"))
+            for name, x in got.items():
+                check(np.array_equal(np.asarray(x), want[name]),
+                      f"sharded k={k} {step}: {name} differs card vs CPU")
+            times[f"{step}_cpu_s"] = round(float(want["seconds"]), 3)
+            times[f"{step}_card_s"] = round(seconds, 3)
+        snap = card[k][0][1]
+        check(snap["n_repaired_windows"] > 0,
+              f"sharded k={k}: no window repaired")
+        say("sharded-parity", k=k, m=m, b=b, bases=bases,
+            n_emitted=snap["n_emitted"],
+            n_repaired_windows=snap["n_repaired_windows"],
+            n_spilled=snap["n_spilled"], steps="+".join(PARITY_STEPS),
+            bit_exact=True, cpu_wait_s=round(wait_s, 3), **times)
+
+
 def phase_k63_deploy(dev, tmp: str) -> dict:
     from brisk_tpu_torch.api import Brisk
     from brisk_tpu_torch.index import sklstore
@@ -794,25 +1055,46 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 say("build", kernel=name, ptxas=line.strip())
 
-    kern = phase_kernels(dev)
+    spent = {}
+
+    def run(name, fn, *args):
+        """One phase, its wall seconds kept for the closing line."""
+        t = time.perf_counter()
+        out = fn(*args)
+        spent[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    kern = run("kernels", phase_kernels, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_fixtures(dev, tmp)
-        dep = phase_deployment(dev, tmp)
-        con = phase_consolidate(dev, dep)
+        run("fixtures", phase_fixtures, dev, tmp)
+        dep = run("deploy", phase_deployment, dev, tmp)
+        con = run("consolidate", phase_consolidate, dev, dep)
         dep_launches = dict(launches=dep["launches"])
         counter = {key: dep[key] for key in ("path", "sample", "direct",
-                                             "nb_kmers")}
+                                             "got", "nb_kmers")}
         del dep
         torch.cuda.empty_cache()
-        phase_payload(dev, counter)
-        phase_payload_parity(dev, tmp)
-        k63 = phase_k63_deploy(dev, tmp)
+        run("payload", phase_payload, dev, counter)
+        run("payload-parity", phase_payload_parity, dev, tmp)
+        # the CPU half of sharded-parity runs beside the card's phases
+        ref = start_sharded_reference(tmp)
+        try:
+            shard = run("sharded", phase_sharded, dev, counter)
+            run("sharded-spill", phase_sharded_spill, dev, tmp)
+            run("sharded-parity", phase_sharded_parity, dev, tmp, ref)
+        finally:
+            if ref.poll() is None:
+                ref.kill()
+                ref.wait()
+        k63 = run("k63-deploy", phase_k63_deploy, dev, tmp)
         torch.cuda.empty_cache()
-        short = phase_k63_short(dev, tmp)
-        phase_counter_cli(tmp)
+        short = run("k63-short", phase_k63_short, dev, tmp)
+        run("counter-cli", phase_counter_cli, tmp)
+    say("phases", **spent, total_s=round(sum(spent.values()), 1))
 
     per_layout = {layout: sum(r["launches"][layout] for r in (
-        dep_launches, con, k63, short)) for layout in ("jmajor", "rowmajor")}
+        dep_launches, con, shard, k63, short))
+        for layout in ("jmajor", "rowmajor")}
     first = kern["shapes"][0]  # finalize k=31, 2^23 rows, J-major
     report = {"kernels": [{
         "name": "expand_span", "route": "cuda",
@@ -821,6 +1103,7 @@ def main() -> int:
         "launches": sum(per_layout.values()),
         "launches_by_layout": per_layout,
         "max_abs_err": max(kern["max_abs_err"], con["kernel"]["max_abs_err"],
+                           shard["kernel"]["max_abs_err"],
                            k63["kernel"]["max_abs_err"]),
         "ms": first["kernel_ms"], "plain_ms": first["plain_ms"],
         "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
@@ -835,7 +1118,13 @@ def main() -> int:
         "consolidate_R": con["kernel"]["R"],
         "consolidate_rowmajor_ms": con["kernel"]["rowmajor_ms"],
         "consolidate_rowmajor_plain_ms":
-            con["kernel"]["rowmajor_plain_ms"]}]}
+            con["kernel"]["rowmajor_plain_ms"],
+        "sharded_launches_by_layout": shard["launches"],
+        "sharded_R": shard["kernel"]["R"],
+        "sharded_jmajor_ms": shard["kernel"]["jmajor_ms"],
+        "sharded_jmajor_plain_ms": shard["kernel"]["jmajor_plain_ms"],
+        "sharded_rowmajor_ms": shard["kernel"]["rowmajor_ms"],
+        "sharded_bound_ms": shard["kernel"]["bound_ms"]}]}
     print(smi)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
@@ -845,4 +1134,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-cpu-reference"]:
+        sys.exit(sharded_cpu_reference(sys.argv[2]))
     sys.exit(main())

@@ -103,8 +103,8 @@ def test_jax_checkpoint_loads_into_port(tmp_path):
 
 def test_unported_entry_points_raise(tmp_path):
     """The entry points the first slice left out now run (k > 32 insert,
-    consolidate, reallocate, save), the payload API imports, and the
-    sharded facade still to port has no module in the port."""
+    consolidate, reallocate, save), and the payload API and the sharded
+    facade import."""
     import importlib
     seq = "ACGTTGCAACGGATTC" * 12
     tb = TBrisk(Parameters(63, 21, 14), batch=4, window=128, device="cpu")
@@ -121,8 +121,8 @@ def test_unported_entry_points_raise(tmp_path):
     assert TBrisk.load(str(tmp_path / "idx.npz"),
                        device="cpu").counts_dict() == want
     assert importlib.import_module("brisk_tpu_torch.data_api").BriskData
-    with pytest.raises(ModuleNotFoundError):
-        importlib.import_module("brisk_tpu_torch.parallel")
+    assert importlib.import_module(
+        "brisk_tpu_torch.parallel.facade").ShardedBrisk
 
 
 def test_segmented_finalize_matches_oracle():

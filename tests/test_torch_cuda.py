@@ -4,8 +4,9 @@ insert-shaped and mixed rows, ragged and misaligned spans), a small
 index on the card
 against the pure-Python oracle, and the k = 63 streaming insert and
 consolidate_all on the card against the port on the CPU, array for
-array, as are the payload store (index.payload) and BriskData. They
-skip on a machine without a card.
+array, as are the payload store (index.payload), BriskData and the
+sharded facade (8 shards on one card); `sklstore.probe` through the
+kernel. They skip on a machine without a card.
 This file imports no jax; on the card's machine (which has no jax) run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -285,3 +286,106 @@ def test_brisk_data_on_card_matches_cpu(device, tmp_path, k, m, b, width):
         built[i] = BriskData.load(path, device=dev)
     assert built[1].state.keys.device.type == torch.device(device).type
     same()
+
+
+def _arena_np(br) -> dict:
+    """ShardedBrisk's shard-axis arena as numpy (uint32 columns, int64
+    row counters)."""
+    from brisk_tpu_torch import _u32
+    return {name: (_u32.to_np(x) if x.dtype == torch.int32
+                   else x.cpu().numpy())
+            for name, x in zip(sklstore.SklState._fields, br.skl)}
+
+
+def _write_repair_input(path):
+    """data/test.fa, then the record of the repair fixture of
+    tests/test_torch_api.py (windows that need exact repairs)."""
+    import random
+    rng = random.Random(5)
+
+    def rs(n):
+        return "".join(rng.choice("ACGT") for _ in range(n))
+
+    rec = (rs(300) + "ACGTTGCA" * 200 + rs(300) + "AAAAAAAAAAAAC" * 80
+           + rs(300))
+    with open(path, "w") as fh:
+        fh.write(open("data/test.fa").read() + ">repair\n" + rec
+                 + "\n")
+
+
+@pytest.mark.parametrize("k,m,b,route_cap", [(31, 11, 8, None),
+                                             (31, 11, 8, 2),
+                                             (63, 21, 14, None)])
+def test_sharded_on_card_matches_cpu(device, tmp_path, k, m, b, route_cap):
+    """ShardedBrisk with 8 shards on the card equals the same facade on
+    the CPU, array for array, after insert_file (repairs; a forced spill
+    at route_cap 2), finalize, reallocate and save -> load; the reads
+    agree with the oracle, and the kernel ran on the card's path."""
+    from brisk_tpu_torch.parallel.facade import ShardedBrisk
+    path = str(tmp_path / "in.fa")
+    _write_repair_input(path)
+    geo = dict(n_devices=8, batch_per_shard=4, window=128, stack=2,
+               skl_route_cap=route_cap)
+    built = [ShardedBrisk(Parameters(k, m, b), device=dev, **geo)
+             for dev in ("cpu", device)]
+
+    def same(step):
+        a, c = (_arena_np(br) for br in built)
+        for f in a:
+            np.testing.assert_array_equal(c[f], a[f], err_msg=f"{step} {f}")
+        for attr in ("n_emitted", "n_superkmers", "n_spilled",
+                     "n_repaired_windows", "n_skl_overflows"):
+            assert getattr(built[0], attr) == getattr(built[1], attr), attr
+
+    for br in built:
+        br.insert_file(path)
+    same("insert")
+    assert built[1].n_repaired_windows > 0
+    if route_cap:
+        assert built[1].n_spilled > 0
+    before = dict(kernels.LAUNCHES)
+    for br in built:
+        br.finalize()
+    same("finalize")
+    assert kernels.LAUNCHES["expand_span_jmajor"] > \
+        before["expand_span_jmajor"]
+    counts = built[1].counts_dict()
+    assert counts == built[0].counts_dict() == pyref.count_fasta(path, k, m)
+    assert built[1].query_file(path) == built[0].query_file(path)
+    for br in built:
+        br.reallocate()
+    same("reallocate")
+    for i, dev in enumerate(("cpu", device)):
+        ck = str(tmp_path / f"sh{i}.npz")
+        built[i].save(ck)
+        built[i] = ShardedBrisk.load(ck, device=dev, **geo)
+    assert built[1].skl.bucket.device.type == torch.device(device).type
+    same("save-load")
+    assert built[1].counts_dict() == counts
+
+
+def test_probe_through_kernel_matches_host_probe(device):
+    """sklstore.probe on the card (the row-major kernel over one bucket's
+    rows, every segment) equals probe_np on a host copy, hits and misses,
+    keys split across two segments."""
+    from brisk_tpu_torch.index import keying
+    k, m, b = 31, 11, 8
+    br = Brisk(Parameters(k, m, b), batch=16, window=64, device=device)
+    for _ in range(2):
+        br.insert_file("data/test.fa")
+        br.finalize()
+    segs = br._skl_segments
+    assert len(segs) == 2
+    kmers = [pyref.num2str(v, k) for v in sorted(br.counts_dict())[::37]]
+    kmers += ["ACGT" * 7 + "ACG", "T" * 31]
+    buckets, cols = keying.key_batch(keying.strs_to_codes(kmers), m, b)
+    cache = sklstore.host_cache(br.skl)
+    before = kernels.LAUNCHES["expand_span_rowmajor"]
+    for i, bk in enumerate(buckets):
+        c = cols[:, i:i + 1]
+        got = sklstore.probe(br.skl, c, int(bk), k, m, b, segments=segs,
+                             bucket_col=cache["bucket"])
+        want = sklstore.probe_np(cache, c, int(bk), k, m, b, segments=segs)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert kernels.LAUNCHES["expand_span_rowmajor"] > before

@@ -128,7 +128,10 @@ def test_port_never_imports_jax_or_the_jax_package():
     files = _port_sources()
     assert len(files) > 15
     for mod in ("data_api.py", os.path.join("index", "payload.py"),
-                os.path.join("index", "pipeline.py")):
+                os.path.join("index", "pipeline.py"),
+                os.path.join("parallel", "multihost.py"),
+                os.path.join("parallel", "sharded.py"),
+                os.path.join("parallel", "facade.py")):
         assert os.path.join(PKG, mod) in files, mod
     for f in files + [os.path.join(os.path.dirname(PKG), "chip_smoke.py")]:
         with open(f) as fh:
