@@ -845,8 +845,9 @@ class Brisk:
         if "skl_segments" in z:
             self._skl_segments = [tuple(int(x) for x in row)
                                   for row in z["skl_segments"]]
-        elif nfr:
-            self._skl_segments = [(0, nfr)]
+        else:  # no run list in the file: rebuild it from the buckets
+            self._skl_segments = sklstore.runs_from_bucket(z["skl_bucket"],
+                                                           nfr)
         self.n_emitted = int(z["n_emitted"])
         self.n_superkmers = int(z["n_superkmers"])
         return self

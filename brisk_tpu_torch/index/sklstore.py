@@ -550,6 +550,23 @@ def fetch_rows(arr: torch.Tensor, start: int, n: int) -> np.ndarray:
 
 # -- serving lookups from the finalized arena on its device ---------------
 
+def runs_from_bucket(bucket_col: np.ndarray, n_fin_rows: int) -> list:
+    """The bucket-sorted runs [(lo, hi)] of a finalized arena's first
+    `n_fin_rows` rows, rebuilt from its host bucket column (uint32): a
+    run starts at row 0 and wherever the bucket id drops. Every finalize
+    writes one sorted run of live rows, so each maximal non-decreasing
+    stretch is sorted and a binary search over it is exact; two runs
+    that meet without a drop form one stretch, which is still sorted.
+    This is how a checkpoint without its run list (the sharded `.npz`
+    files of either package) gets its runs back on load."""
+    if n_fin_rows <= 0:
+        return []
+    col = np.asarray(bucket_col[:n_fin_rows], dtype=np.uint32)
+    starts = (np.flatnonzero(col[1:] < col[:-1]) + 1).tolist()
+    bounds = [0] + starts + [n_fin_rows]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
 def bucket_slice(state: SklState, bucket_id: int, segments=None,
                  bucket_col: np.ndarray = None):
     """Row ranges [(lo, hi)] of one bucket across the arena's

@@ -668,11 +668,14 @@ class ShardedBrisk:
         self._skl_dirty = False
 
     def _assemble_skl(self, done: dict) -> None:
-        """Stack fully finalized per-shard arenas (one bucket-grouped run
-        each) into the shard-axis state and reset the segment lists."""
+        """Stack fully finalized per-shard arenas into the shard-axis state;
+        each shard's segment list is rebuilt from its bucket column
+        (sklstore.runs_from_bucket: one run after reallocate, one per
+        finalize cycle in a reloaded checkpoint)."""
         for d, fin in done.items():
             nfr = int(fin.n_fin_rows)
-            self._skl_segments[d] = [(0, nfr)] if nfr else []
+            self._skl_segments[d] = sklstore.runs_from_bucket(
+                sklstore.fetch_rows(fin.bucket, 0, nfr), nfr)
         self._stack_shards(done)
 
     # -- persistence -------------------------------------------------------
@@ -772,9 +775,13 @@ class ShardedBrisk:
             self.device)
         self._skl_rows_ub = int(self.skl.n_rows.max())
         self._skl_dirty = False
+        # the file keeps no run lists: rebuild each shard's from its
+        # bucket column (every finalize cycle appended one sorted run)
         nfr = np.asarray(z["skl_n_fin_rows"])
-        self._skl_segments = {d: ([(0, int(nfr[d]))] if int(nfr[d])
-                                  else []) for d in range(n_shards)}
+        bucket = np.asarray(z["skl_bucket"])
+        self._skl_segments = {d: sklstore.runs_from_bucket(bucket[d],
+                                                           int(nfr[d]))
+                              for d in range(n_shards)}
         self.n_emitted = int(z["n_emitted"])
         self.n_superkmers = int(z["n_superkmers"])
         self.n_spilled = int(z["n_spilled"])

@@ -1,0 +1,260 @@
+"""Trace the three device programs of the main path with torch.profiler
+(the counterpart of the repo's scripts/trace_insert.py):
+
+    python -m brisk_tpu_torch.trace_insert [--device cuda|cpu] [--out DIR]
+
+At the bench geometry (k=31 m=11 b=8, batch 2048, window 512, stack 8)
+on an 8 Mb random record (seed 7): one pipeline.insert_flat_sklnative
+flush into an empty arena (`flush`), sklstore.finalize_device of that
+arena (`finalize`), and the query_file route's join of a small query
+(the record's first 1 Mb, enumerated into a shadow arena outside the
+span) against the finalized arena (`query_join`,
+sklstore.query_join_total). Each program runs once to warm up, once
+untraced (its wall time without the profiler's cost), then once under
+torch.profiler (CPU and CUDA activities), each in a profiler session of
+its own around a record_function span that this script opens and that
+ends with a synchronize. A session holds one span's work and nothing
+else, so its device events are the span's by membership, not by where
+their timestamps fall: on the H100 the device timestamps have been seen
+to land past the end of every span, and a time window over one session
+for all three spans once counted no kernel in the join.
+
+Writes one Chrome trace per span to DIR/trace_<span>.json (DIR defaults
+to brisk_trace in the temp directory) and prints one JSON line per span:
+the traced and untraced wall ms, CUDA kernel launches, device-busy ms
+(the union of the kernel, memcpy and memset intervals of the session),
+device_idle_share = 1 - busy / traced wall, the 10 kernels with the
+most device time, and the device events whose timestamps fall outside
+the span (0 when the clocks agree). With `--device cpu` the device
+fields are null and the span's CPU op count is given. On a card, a
+span whose session recorded no device activity is traced again (the
+whole pass, up to 3 attempts, counted in `attempts`); if it never does,
+the run raises instead of passing a CPU trace off as a device trace.
+"""
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+from contextlib import contextmanager, nullcontext
+
+import numpy as np
+import torch
+
+from brisk_tpu_torch import bench
+from brisk_tpu_torch.bench import sync
+
+SPANS = ("flush", "finalize", "query_join")
+
+
+def _write_query(path: str, codes: np.ndarray, read_len: int = 10_000):
+    letters = np.frombuffer(b"ACTG", dtype=np.uint8)[codes]
+    with open(path, "w") as fh:
+        for i, j in enumerate(range(0, len(codes), read_len)):
+            fh.write(f">q{i}\n{letters[j:j + read_len].tobytes().decode()}\n")
+
+
+def _run_programs(dev, stack_t, packer, query_path, params, geo,
+                  span=lambda name: nullcontext()) -> dict:
+    """The three programs on a fresh arena, each inside span(name) and
+    ended by a synchronize: {name: wall ms}."""
+    from brisk_tpu_torch.api import Brisk
+    from brisk_tpu_torch.index import pipeline, sklstore
+    k, m, b = params.k, params.m, params.b
+    row_cap = max(16, geo["window"] // 4)
+    nw = sklstore.skl_dims(k, m, b)[3]
+    flush_rows = geo["stack"] * geo["batch"] * row_cap
+    skl = sklstore.empty(1 << max(14, (2 * flush_rows - 1).bit_length()),
+                         1 << 14, nw, dev)
+    chain = pipeline.zero_chain(dev)
+    wall = {}
+
+    @contextmanager
+    def timed(name):
+        sync(dev)
+        with span(name):
+            t = time.perf_counter()
+            yield
+            sync(dev)
+            wall[name] = 1e3 * (time.perf_counter() - t)
+
+    with timed("flush"):
+        out = pipeline.insert_flat_sklnative(
+            skl, *stack_t, chain, k, m, b, row_cap, packer.l_buf,
+            packer.useful)
+        skl = out[0]
+        int(out[5])  # data-dependent readback (n_rows)
+    with timed("finalize"):
+        skl = sklstore.finalize_device(skl, k, m, b)
+        int(skl.n_fin_kmers)
+    shadow = Brisk(params, device=dev, **geo)
+    shadow.insert_file(query_path)
+    shadow._drain()
+    box = [shadow.skl]
+    shadow.skl = None
+    with timed("query_join"):
+        wall["query_total"] = sklstore.query_join_total(skl, box, k, m, b)
+    return wall
+
+
+def _union_ms(intervals) -> float:
+    """Total length (ms) of the union of (start, end) intervals in us."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3
+
+
+class NoDeviceActivity(RuntimeError):
+    """A span's profiler session recorded no CUDA activity."""
+
+
+def span_summary(events, dev: torch.device, name: str,
+                 top: int = 10) -> dict:
+    """One span from the events of its own profiler session: launches,
+    busy ms, idle share and top kernels on a card; the CPU op count on
+    the CPU."""
+    from torch.autograd import DeviceType
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    sp = [e for e in cpu if e.name == name]
+    if not sp:
+        raise RuntimeError(f"span {name} missing from its trace")
+    sp = sp[-1]
+    lo, hi = sp.time_range.start, sp.time_range.end
+    wall_ms = (hi - lo) / 1e3
+    rec = dict(span=name, traced_wall_ms=wall_ms)
+    if dev.type != "cuda":
+        rec.update(launches=None, busy_ms=None, device_idle_share=None,
+                   top_kernels=None, outside_span=None, cpu_ops=sum(
+                       1 for e in cpu if e is not sp
+                       and lo <= e.time_range.start
+                       and e.time_range.end <= hi))
+        return rec
+    # the session's device events, less the span's own GPU annotation
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name != name]
+    kernels = [e for e in device
+               if not e.name.startswith(("Memcpy", "Memset"))]
+    if not kernels:
+        raise NoDeviceActivity(f"the profiler recorded no CUDA activity "
+                               f"in span {name}")
+    busy = _union_ms((e.time_range.start, e.time_range.end)
+                     for e in device)
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    rec.update(launches=len(kernels), busy_ms=busy,
+               device_idle_share=1.0 - busy / wall_ms,
+               memcpy_memset=len(device) - len(kernels),
+               top_kernels=[dict(name=n[:120], launches=c, ms=t)
+                            for n, (c, t) in sorted(
+                                by_name.items(),
+                                key=lambda kv: -kv[1][1])[:top]],
+               outside_span=sum(1 for e in device
+                                if e.time_range.start < lo
+                                or e.time_range.end > hi),
+               cpu_ops=None)
+    return rec
+
+
+def _traced_pass(run, activities, out_dir: str):
+    """The three programs, each in a profiler session of its own:
+    ({name: wall ms}, {name: span summary}); writes trace_<span>.json."""
+    from torch.profiler import profile, record_function
+    dev = run[0]
+    sessions = {}
+
+    @contextmanager
+    def span(name):
+        with profile(activities=activities) as prof:
+            with record_function(name):
+                yield
+        sessions[name] = prof
+
+    wall = _run_programs(*run, span=span)
+    summary = {}
+    for name, prof in sessions.items():
+        prof.export_chrome_trace(os.path.join(out_dir,
+                                              f"trace_{name}.json"))
+        summary[name] = span_summary(prof.events(), dev, name)
+    return wall, summary
+
+
+def trace(dev: torch.device, out_dir: str, rec_bases: int = 8_000_000,
+          query_bases: int = 1_000_000, k: int = 31, m: int = 11,
+          b: int = 8, batch: int = 2048, window: int = 512,
+          stack: int = 8, seed: int = 7, attempts: int = 3) -> list:
+    """Warm up, time untraced, then trace the three programs (see the
+    module note); returns one summary dict per span, in SPANS order."""
+    from torch.profiler import ProfilerActivity
+
+    from brisk_tpu_torch import kernels
+    from brisk_tpu_torch.index import sklstore
+    from brisk_tpu_torch.params import Parameters
+    params = Parameters(k, m, b)
+    geo = dict(batch=batch, window=window, stack=stack)
+    if dev.type == "cuda":
+        kernels.build([sklstore.skl_dims(k, m, b)[1]])
+    rng = np.random.default_rng(seed)
+    rec = rng.integers(0, 4, rec_bases, dtype=np.uint8)
+    stacks, packer = bench.pack_stacks(k, m, batch, window, stack, rec, 1,
+                                       dev)
+    stack_t = stacks[0][:3]
+    os.makedirs(out_dir, exist_ok=True)
+    query_path = os.path.join(out_dir, "query.fa")
+    _write_query(query_path, rec[:query_bases])
+    run = (dev, stack_t, packer, query_path, params, geo)
+    _run_programs(*run)                      # warm-up
+    untraced = _run_programs(*run)
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    for attempt in range(1, attempts + 1):
+        try:
+            traced, summary = _traced_pass(run, activities, out_dir)
+            break
+        except NoDeviceActivity:
+            if attempt == attempts:
+                raise
+    if traced["query_total"] != untraced["query_total"]:
+        raise RuntimeError("the traced query join disagrees with the "
+                           "untraced one")
+    rows = []
+    for name in SPANS:
+        rec_ = dict(summary[name], wall_ms=traced[name],
+                    untraced_wall_ms=untraced[name], attempts=attempt)
+        if name == "query_join":
+            rec_["query_total"] = traced["query_total"]
+        rows.append(rec_)
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="torch.profiler trace of flush, finalize and query join")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(),
+                                                  "brisk_trace"))
+    a = ap.parse_args(argv)
+    dev = bench.device_of(a.device)
+    info = bench.card_info(dev)
+    print(f"{info['device_name']}, {info['power_limit_w']}", flush=True)
+    for row in trace(dev, a.out):
+        print(json.dumps(row), flush=True)
+    print(f"traces written to {os.path.join(a.out, 'trace_<span>.json')}",
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

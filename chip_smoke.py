@@ -19,7 +19,7 @@ is non-zero and no final `ok` line is printed):
    oracle (pyref.count_fasta) on data/test.fa, data/debug_test.fa and a
    fixture that exercises the exact repair and overflow paths.
 4. the deployment: k=31 m=11 b=8 counter on a 50 Mb synthetic genome
-   (5,000 records of 10 kb, tests/make_synth_fasta.write_synth, seed
+   (5,000 records of 10 kb, brisk_tpu_torch.io.synth.write_synth, seed
    1234) through warmup -> insert_file -> finalize, then stats, point
    lookups and query_file, checked against the reference's totals.
 5. consolidate: the same 50 Mb inserted a second time (two finalize
@@ -39,13 +39,15 @@ is non-zero and no final `ok` line is printed):
    total, the distinct count and 1,000 get_canonical calls against the
    counter of phase 4, the kernel against its plain version at one
    shard's finalize span; a forced spill (skl_route_cap 2) on 1 Mb whose
-   counts_dict equals a Brisk's; then the facade on the card against
-   the same facade on the CPU, every per-shard arena array, at k=31
-   (200 kb) and k=63 (30 kb), each with the repair fixture's record,
-   through insert_file, finalize, reallocate and save -> load; the CPU
-   half runs in a child process (`--sharded-cpu-reference`, started
-   before the sharded phase and stopped with the smoke) beside the
-   card's phases.
+   counts_dict equals a Brisk's, then sharded-reload (a second insert +
+   finalize, save -> ShardedBrisk.load on the card: every shard's runs
+   rebuilt, the sampled get_canonical unchanged); then the facade on the
+   card against the same facade on the CPU, every per-shard arena array,
+   at k=31 (200 kb) and k=63 (30 kb), each with the repair fixture's
+   record, through insert_file, finalize, reallocate and save -> load;
+   the CPU half runs in a child process (`--sharded-cpu-reference`,
+   started before the sharded phase and stopped with the smoke) beside
+   the card's phases.
 6. k63-deploy: k=63 m=21 b=14 on 4.6 Mb of 10 kb records (the streaming
    insert), then save/load, KFF export and read-back, query_file and
    reallocate; the kernel at the finalize's span shape.
@@ -53,6 +55,15 @@ is non-zero and no final `ok` line is printed):
    route.
 8. counter-cli: `python -m brisk_tpu_torch.apps.counter --mode 2
    --device cuda -o <kff>` at k=31 and k=63.
+9. trace: brisk_tpu_torch.trace_insert (torch.profiler) at the
+   deployment's lanes and window, one batch per stack: the flush,
+   finalize and query-join spans each launched kernels and have a device
+   idle share strictly between 0 and 1.
+10. bench-quick: `python -m brisk_tpu_torch.bench --quick` in a child
+   process on the card: exit 0, no `_error` field, its k-mer counts and
+   query total equal to the oracle's (oracle.pyref, computed here
+   meanwhile) on the same files, at least two mid-ingest segments in
+   its scale stage.
 
 Each main-path phase zeroes the kernel launch counters before it runs
 and reads them after; comparisons with the plain versions run outside
@@ -78,7 +89,9 @@ K63 = (63, 21, 14)
 K63_BASES = 4_600_000
 EXPECT_K63_KMERS = 4_542_816        # 10 kb records (BENCH_r05 k63_nb_kmers)
 EXPECT_K63_SHORT_KMERS = 2_681_840  # 150 bp reads (k63_shortread_nb_kmers)
-N_LOOKUPS = 10_000
+# point lookups of the deployment (cut from 10,000: the batched lookups
+# are host numpy, ~3.7 ms each, and the time went to the phases below)
+N_LOOKUPS = 1_000
 N_PAYLOAD_GETS = 1_000
 # BriskData on the card against the CPU port: (k, m, b), bases, kinds,
 # geometry
@@ -93,6 +106,10 @@ SHARDED_GEOMETRY = dict(n_devices=8, batch_per_shard=256, window=512,
 N_SHARDED_GETS = 1_000
 SPILL_BASES = 1_000_000
 SPILL_GEOMETRY = dict(n_devices=8, batch_per_shard=64, window=512, stack=4)
+N_RELOAD_GETS = 200
+# trace_insert: the deployment's lanes and window, one batch per stack
+TRACE_SIZE = dict(rec_bases=1_000_000, query_bases=250_000, batch=2048,
+                  window=512, stack=1)
 SHARDED_PARITY = (((K, M, B), 200_000,
                    dict(n_devices=8, batch_per_shard=8, window=64,
                         stack=4)),
@@ -323,8 +340,7 @@ def canonical_counts(idx, sample: list) -> list:
 
 
 def write_input(path: str, bases: int, read_len: int) -> None:
-    sys.path.insert(0, os.path.join(REPO, "tests"))
-    from make_synth_fasta import write_synth
+    from brisk_tpu_torch.io.synth import write_synth
     t = time.perf_counter()
     write_synth(path, bases, read_len=read_len, seed=SYNTH_SEED)
     say("input", file=os.path.basename(path), bases=bases,
@@ -382,7 +398,7 @@ def phase_deployment(dev, tmp: str) -> dict:
     check(launches("rowmajor") > rm0 and launches("jmajor") == jm0,
           "stats did not run the row-major kernel alone")
 
-    # point lookups: 10,000 k-mers sampled from the input, both strands
+    # point lookups: N_LOOKUPS k-mers sampled from the input, both strands
     # (Brisk.get_canonical, batched)
     sample = sample_kmers(path, N_LOOKUPS)
     t = time.perf_counter()
@@ -548,9 +564,8 @@ def phase_payload_parity(dev, tmp: str) -> None:
     from brisk_tpu_torch.data_api import BriskData
     from brisk_tpu_torch.index import payload
     from brisk_tpu_torch.oracle import pyref
+    from brisk_tpu_torch.io.synth import write_synth
     from brisk_tpu_torch.params import Parameters
-    sys.path.insert(0, os.path.join(REPO, "tests"))
-    from make_synth_fasta import write_synth
     rep = os.path.join(tmp, "repair_rec.fa")
     repair_fixture(rep)
     with open(rep) as fh:
@@ -707,7 +722,11 @@ def phase_sharded(dev, dep: dict) -> dict:
 def phase_sharded_spill(dev, tmp: str) -> None:
     """A forced spill (skl_route_cap 2) on ~1 Mb: rows past two per
     destination stay on their source shard; counts_dict equals a port
-    Brisk's on the same file."""
+    Brisk's on the same file. Then sharded-reload: a second insert +
+    finalize cycle (two bucket-sorted runs per shard), save and
+    ShardedBrisk.load on the card, which rebuilds every shard's runs from
+    its bucket column; each sampled get_canonical equals its value
+    before save and the Brisk's count doubled."""
     from brisk_tpu_torch.api import Brisk
     from brisk_tpu_torch.params import Parameters
     from brisk_tpu_torch.parallel.facade import ShardedBrisk
@@ -730,6 +749,35 @@ def phase_sharded_spill(dev, tmp: str) -> None:
         n_emitted=sb.n_emitted, kmers=len(got), insert_s=insert_s,
         exact=True)
 
+    sb.insert_file(path)
+    sb.finalize()
+    runs = [len(sb._skl_segments[d]) for d in range(sb.n_shards)]
+    check(min(runs) >= 2, f"two finalize cycles left runs {runs}")
+    sample = sample_kmers(path, N_RELOAD_GETS, seed=11)
+    want = [None if c is None else (2 * c) % 256
+            for c in canonical_counts(ref, sample)]
+    before = [sb.get_canonical(s) for s in sample]
+    check(before == want, "sharded gets after two cycles != 2 x Brisk's")
+    ckpt = os.path.join(tmp, "sharded_reload.npz")
+    t = time.perf_counter()
+    sb.save(ckpt)
+    back = ShardedBrisk.load(ckpt, device=dev, skl_route_cap=2,
+                             **SPILL_GEOMETRY)
+    sync(dev)
+    reload_s = time.perf_counter() - t
+    check(back.skl.bucket.device.type == dev.type, "reload left the card")
+    rebuilt = [len(back._skl_segments[d]) for d in range(back.n_shards)]
+    check(min(rebuilt) >= 2, f"reload rebuilt runs {rebuilt}")
+    t = time.perf_counter()
+    after = [back.get_canonical(s) for s in sample]
+    get_s = time.perf_counter() - t
+    check(after == before, "sharded get_canonical changed across save -> "
+          "load")
+    say("sharded-reload", cycles=2, runs_per_shard=runs,
+        rebuilt_runs_per_shard=rebuilt, gets=len(sample),
+        found=sum(c is not None for c in after), save_load_s=reload_s,
+        get_s=get_s, exact=True)
+
 
 PARITY_STEPS = ("insert", "finalize", "reallocate", "save-load")
 PARITY_COUNTERS = ("n_emitted", "n_superkmers", "n_spilled",
@@ -739,8 +787,7 @@ PARITY_COUNTERS = ("n_emitted", "n_superkmers", "n_spilled",
 def sharded_parity_inputs(tmp: str) -> dict:
     """k -> FASTA of SHARDED_PARITY: synthetic records, then the repair
     fixture's record."""
-    sys.path.insert(0, os.path.join(REPO, "tests"))
-    from make_synth_fasta import write_synth
+    from brisk_tpu_torch.io.synth import write_synth
     rep = os.path.join(tmp, "repair_rec.fa")
     repair_fixture(rep)
     with open(rep) as fh:
@@ -848,6 +895,102 @@ def phase_sharded_parity(dev, tmp: str, ref: subprocess.Popen) -> None:
             n_repaired_windows=snap["n_repaired_windows"],
             n_spilled=snap["n_spilled"], steps="+".join(PARITY_STEPS),
             bit_exact=True, cpu_wait_s=round(wait_s, 3), **times)
+
+
+def start_bench_quick(tmp: str) -> tuple:
+    """Write the quick bench's inputs (io.synth, the bench's file names)
+    and start `python -m brisk_tpu_torch.bench --quick` on the card in a
+    child process; returns (process, data directory, log path)."""
+    from brisk_tpu_torch import bench
+    data = os.path.join(tmp, "bench_data")
+    for stage, read_len in (("e2e", SYNTH_READ), ("k63", SYNTH_READ),
+                            ("k63_short", 150), ("scale500", SYNTH_READ)):
+        bench.synth_path(data, bench.QUICK[stage]["n_bases"], read_len)
+    log = os.path.join(tmp, "bench_quick.out")
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "brisk_tpu_torch.bench", "--quick",
+             "--data-dir", data], cwd=REPO, stdout=out,
+            stderr=subprocess.STDOUT, env=dict(os.environ, PYTHONPATH=REPO))
+    return proc, data, log
+
+
+def phase_bench_quick(started: tuple) -> None:
+    """The quick bench (every stage on the card at ~1/50 of its size)
+    exits 0 with no `_error` field; its k-mer counts and query total equal
+    the oracle's (oracle.pyref, computed here while the bench runs) on
+    the same files; its 10 Mb scale stage finalized at least twice
+    mid-ingest."""
+    from brisk_tpu_torch import bench
+    from brisk_tpu_torch.oracle import pyref
+    proc, data, log = started
+    try:
+        e2e = bench.synth_path(data, bench.QUICK["e2e"]["n_bases"])
+        counts = pyref.count_fasta(e2e, K, M)
+        want = dict(
+            e2e_nb_kmers=sum(counts.values()),
+            query_file_total_mod256=sum(c * c for c in counts.values())
+            & 0xFFFFFFFF)
+        for key, read_len in (("k63_nb_kmers", SYNTH_READ),
+                              ("k63_shortread_nb_kmers", 150)):
+            path = bench.synth_path(data, bench.QUICK["k63"]["n_bases"],
+                                    read_len)
+            want[key] = sum(len(c) - K63[0] + 1
+                            for c in pyref.read_fasta_chunks(path)
+                            if len(c) >= K63[0])
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(log) as fh:
+        text = fh.read()
+    lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+    check(rc == 0 and lines, f"bench --quick exited {rc}:\n{text[-3000:]}")
+    rec = json.loads(lines[-1])
+    errors = {key: v for key, v in rec.items() if key.endswith("_error")}
+    check(not errors, f"bench --quick stage errors: {errors}")
+    for key, value in want.items():
+        check(rec[key] == value, f"bench --quick {key} {rec[key]} != "
+              f"oracle {value}")
+    check(rec["e2e_repaired_windows"] == 0 and rec["e2e_skl_overflows"] == 0,
+          "bench --quick repaired or overflowed")
+    check(rec["scale500_segments"] >= 2,
+          f"scale stage gave {rec['scale500_segments']} segments")
+    check(rec["sharded_n_spilled_n8"] == 0
+          and rec["sharded_nb_kmers_n1"] == rec["sharded_nb_kmers_n8"],
+          "sharded stage: spills or unequal totals")
+    say("bench-quick", rc=rc, oracle_equal=sorted(want),
+        **{key: rec[key] for key in (
+            "value", "e2e_warm_kmers_per_sec", "stage_insert_s",
+            "stage_query_s", "expand_kernel_ms", "expand_share_of_bound",
+            "k63_insert_s", "scale500_segments", "scale500_insert_s",
+            "scale500_peak_gib", "sharded_step_ms_n1", "sharded_step_ms_n8")})
+
+
+def phase_trace(dev, tmp: str) -> dict:
+    """trace_insert at the deployment's batch and window, one batch per
+    stack (a quarter of the launches of the bench's 8): the flush,
+    finalize and query-join spans are each present, launched kernels and
+    were neither idle throughout nor never idle."""
+    from brisk_tpu_torch import trace_insert
+    reset_launches()
+    rows = trace_insert.trace(dev, os.path.join(tmp, "trace"), **TRACE_SIZE)
+    n = layout_launches()
+    check([r["span"] for r in rows] == list(trace_insert.SPANS),
+          f"trace spans {[r['span'] for r in rows]}")
+    for r in rows:
+        check(r["launches"] > 0 and 0 < r["device_idle_share"] < 1,
+              f"trace span {r['span']}: launches {r['launches']}, idle "
+              f"{r['device_idle_share']}")
+        say("trace", span=r["span"], wall_ms=r["wall_ms"],
+            untraced_wall_ms=r["untraced_wall_ms"], launches=r["launches"],
+            busy_ms=r["busy_ms"], device_idle_share=r["device_idle_share"],
+            outside_span=r["outside_span"], attempts=r["attempts"],
+            top_kernel=r["top_kernels"][0]["name"][:60])
+    check(n["jmajor"] > 0 and n["rowmajor"] > 0,
+          f"the traced finalize and join did not launch both layouts: {n}")
+    return dict(launches=n)
 
 
 def phase_k63_deploy(dev, tmp: str) -> dict:
@@ -1090,10 +1233,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         short = run("k63-short", phase_k63_short, dev, tmp)
         run("counter-cli", phase_counter_cli, tmp)
+        trace = run("trace", phase_trace, dev, tmp)
+        torch.cuda.empty_cache()
+        run("bench-quick", phase_bench_quick, start_bench_quick(tmp))
     say("phases", **spent, total_s=round(sum(spent.values()), 1))
 
     per_layout = {layout: sum(r["launches"][layout] for r in (
-        dep_launches, con, shard, k63, short))
+        dep_launches, con, shard, k63, short, trace))
         for layout in ("jmajor", "rowmajor")}
     first = kern["shapes"][0]  # finalize k=31, 2^23 rows, J-major
     report = {"kernels": [{
@@ -1124,7 +1270,8 @@ def main() -> int:
         "sharded_jmajor_ms": shard["kernel"]["jmajor_ms"],
         "sharded_jmajor_plain_ms": shard["kernel"]["jmajor_plain_ms"],
         "sharded_rowmajor_ms": shard["kernel"]["rowmajor_ms"],
-        "sharded_bound_ms": shard["kernel"]["bound_ms"]}]}
+        "sharded_bound_ms": shard["kernel"]["bound_ms"],
+        "trace_launches_by_layout": trace["launches"]}]}
     print(smi)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,15 @@ against the pure-Python oracle, and the k = 63 streaming insert and
 consolidate_all on the card against the port on the CPU, array for
 array, as are the payload store (index.payload), BriskData and the
 sharded facade (8 shards on one card); `sklstore.probe` through the
-kernel. They skip on a machine without a card.
+kernel; the measurement tools (bench stages on the card against the
+CPU, the profiler trace, the profiles, bench's default device). They
+skip on a machine without a card.
 This file imports no jax; on the card's machine (which has no jax) run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -389,3 +393,73 @@ def test_probe_through_kernel_matches_host_probe(device):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
     assert kernels.LAUNCHES["expand_span_rowmajor"] > before
+
+
+# -- the measurement tools on the card (brisk_tpu_torch.bench,
+#    trace_insert, profile_device, profile_sort) --------------------------
+
+BENCH_GEO = dict(batch=32, window=64, stack=2)
+
+
+def test_bench_stages_on_card_match_cpu(device, tmp_path):
+    """Each bench stage at a tiny size reports the same correctness fields
+    on the card as on the CPU; the expansion stage times the kernel
+    against its bound."""
+    from brisk_tpu_torch import bench
+    data = str(tmp_path)
+    runs = {}
+    for dev in (torch.device("cpu"), torch.device(device)):
+        runs[dev.type] = dict(
+            bench.e2e_bench(dev, data, n_bases=60_000, **BENCH_GEO),
+            **bench.k63_e2e_bench(dev, data, n_bases=30_000, batch=16,
+                                  window=256, stack=2),
+            **bench.scale_500mb_bench(dev, data, n_bases=30_000,
+                                      segment_rows=1 << 11, **BENCH_GEO),
+            **bench.sharded_overhead(dev, steps=3, **BENCH_GEO))
+    cpu, card = runs["cpu"], runs["cuda"]
+    for key in ("e2e_nb_kmers", "e2e_repaired_windows", "e2e_skl_overflows",
+                "resident_bytes_per_kmer", "query_file_total_mod256",
+                "k63_nb_kmers", "scale500_nb_kmers", "scale500_segments",
+                "scale500_rows", "sharded_nb_kmers_n1", "sharded_nb_kmers_n8",
+                "sharded_n_spilled_n8"):
+        assert card[key] == cpu[key], key
+    assert card["scale500_segments"] >= 2 and card["e2e_peak_gib"] > 0
+    exp = bench.expand_bench(torch.device(device), rows=1 << 16)
+    assert exp["expand_kernel_ms"] > 0 and exp["expand_plain_ms"] > 0
+    assert 0 < exp["expand_share_of_bound"] < 1.5
+
+
+def test_trace_on_card(device, tmp_path):
+    """trace_insert on the card: every span launched kernels, was busy for
+    part of its wall time, and names its top kernels."""
+    from brisk_tpu_torch import trace_insert
+    rows = trace_insert.trace(torch.device(device), str(tmp_path),
+                              rec_bases=200_000, query_bases=50_000,
+                              batch=64, window=128, stack=2)
+    assert [r["span"] for r in rows] == list(trace_insert.SPANS)
+    for r in rows:
+        assert r["launches"] > 0 and 0 < r["device_idle_share"] < 1, r
+        assert 0 < r["busy_ms"] <= r["traced_wall_ms"]
+        assert r["top_kernels"] and r["cpu_ops"] is None
+        assert r["outside_span"] >= 0 and r["attempts"] >= 1
+
+
+def test_profiles_on_card(device):
+    from brisk_tpu_torch import profile_device, profile_sort
+    dev = torch.device(device)
+    rows = profile_device.profile(dev, batch=256, length=256, stack=2)
+    assert len(rows) == 5 and all(r["ms"] > 0 for r in rows)
+    rows = profile_sort.profile(dev, n=1 << 16,
+                                row_batches=((64, 1024), (8, 8192)))
+    assert len(rows) == len(profile_sort.SORTS) + 4
+    assert all(r["ms"] > 0 for r in rows)
+
+
+def test_bench_main_defaults_to_the_card(device, capsys, tmp_path):
+    from brisk_tpu_torch import bench
+    assert bench.main(["--quick", "--stages", "expand", "--data-dir",
+                       str(tmp_path)]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    rec = json.loads(lines[-1])
+    assert rec["device"].startswith("cuda") and rec["power_limit_w"]
+    assert rec["expand_kernel_ms"] > 0

@@ -9,10 +9,13 @@ oracle. Lookups agree with the oracle, query_file totals with the
 facade in one process, and
 load_multihost_checkpoint reassembles the same counts. Each worker also
 holds the cross-process chain certificate (sharded._chain_exact_sharded)
-to pipeline._chain_exact over all lanes.
+to pipeline._chain_exact over all lanes. After two insert + finalize
+cycles (two bucket-sorted runs per shard), load_multihost_checkpoint
+rebuilds every shard's runs, and each sampled get_canonical equals its
+value before save and the oracle's count.
 
 This file is also the worker: `python tests/test_torch_multihost.py
-<port> <process_id> <num_processes> <out_json>`."""
+<port> <process_id> <num_processes> <out_json> [reload]`."""
 
 import json
 import os
@@ -46,6 +49,25 @@ def repair_records():
     rec = (rs(300) + "ACGTTGCA" * 200 + rs(300) + "AAAAAAAAAAAAC" * 80
            + rs(300))
     return [rec, rs(120), rs(90)]
+
+
+def cycle_records(cycle: int):
+    """Three random 3 kb records per insert + finalize cycle."""
+    rng = random.Random(61 + cycle)
+    return ["".join(rng.choice("ACGT") for _ in range(3000))
+            for _ in range(3)]
+
+
+def reload_sample(n: int = 120) -> list:
+    """n k-mers at fixed positions of the cycles' records."""
+    recs = cycle_records(0) + cycle_records(1)
+    rng = random.Random(3)
+    out = []
+    for _ in range(n):
+        r = recs[rng.randrange(len(recs))]
+        p = rng.randrange(len(r) - K + 1)
+        out.append(r[p:p + K])
+    return out
 
 
 def write_fasta(path: str, records) -> str:
@@ -140,6 +162,63 @@ def worker(port: str, pid: int, nproc: int, out_path: str) -> None:
     dist.destroy_process_group()
 
 
+def reload_worker(port: str, pid: int, nproc: int, out_path: str) -> None:
+    """Two insert + finalize cycles across the processes, the sample's
+    get_canonical values (collective), then per-process checkpoints."""
+    import torch
+    torch.set_num_threads(1)
+    from brisk_tpu_torch.params import Parameters
+    from brisk_tpu_torch.parallel import multihost
+    from brisk_tpu_torch.parallel.facade import ShardedBrisk
+
+    multihost.initialize(f"localhost:{port}", nproc, pid, device="cpu")
+    sb = ShardedBrisk(Parameters(K, M, B), n_devices=8, device="cpu",
+                      **GEOMETRY)
+    for c in range(2):
+        sb.insert_file(write_fasta(f"{out_path}.cycle{c}.fa",
+                                   cycle_records(c)))
+        sb.finalize()
+    out = {"runs": {str(d): sb._skl_segments[d] for d in sb.my_shards},
+           "before": [sb.get_canonical(s) for s in reload_sample()]}
+    sb.save(os.path.join(os.path.dirname(os.path.abspath(out_path)),
+                         "ckpt_reload"))
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+
+def _run_workers(tmp_path, mode: str = ""):
+    """Start the 2 workers of `mode`; returns their Popen objects and out
+    paths."""
+    outs = [str(tmp_path / f"w{i}.json") for i in range(2)]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    port = str(_free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), port, str(i), "2",
+         outs[i]] + ([mode] if mode else []), cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in range(2)]
+    return procs, outs
+
+
+def _wait(procs, meanwhile=lambda: None):
+    """Run `meanwhile()` while the workers run, then wait for them; kill
+    any still running on the way out. Returns what `meanwhile` did."""
+    try:
+        result = meanwhile()
+        for p in procs:
+            out, _ = p.communicate(timeout=45)
+            assert p.returncode == 0, f"worker failed:\n{out[-4000:]}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return result
+
+
 def _free_port() -> int:
     s = socket.socket()
     s.bind(("localhost", 0))
@@ -157,28 +236,15 @@ def test_two_process_gloo_count_parity(tmp_path):
     from brisk_tpu_torch.params import Parameters
     from brisk_tpu_torch.parallel.facade import ShardedBrisk
 
-    outs = [str(tmp_path / f"w{i}.json") for i in range(2)]
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    port = str(_free_port())
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), port, str(i), "2",
-         outs[i]], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for i in range(2)]
-    try:
-        # brisk_tpu's single-process facade while the workers run
+    def jax_facade_counts():
+        """brisk_tpu's single-process facade while the workers run."""
         stream = write_fasta(str(tmp_path / "stream.fa"), stream_records())
         jb = JSharded(JParameters(K, M, B), **GEOMETRY)
         jb.insert_file(stream)
-        j_counts = jb.counts_dict()
-        for p in procs:
-            out, _ = p.communicate(timeout=45)
-            assert p.returncode == 0, f"worker failed:\n{out[-4000:]}"
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        return jb.counts_dict()
+
+    procs, outs = _run_workers(tmp_path)
+    j_counts = _wait(procs, jax_facade_counts)
     results = [json.load(open(o)) for o in outs]
     assert all(r["chain_ok"] for r in results)
     for name, records in (("stream", stream_records()),
@@ -219,5 +285,41 @@ def test_two_process_gloo_count_parity(tmp_path):
                                                device="cpu")
 
 
+def test_multihost_checkpoint_reload_keeps_each_shards_runs(tmp_path):
+    """load_multihost_checkpoint after two finalize cycles: every shard's
+    runs are rebuilt from its bucket column (the same runs the workers
+    held), and every sampled get_canonical equals its value before save
+    and the oracle's count."""
+    from brisk_tpu_torch.oracle import pyref
+    from brisk_tpu_torch.parallel.facade import ShardedBrisk
+
+    procs, outs = _run_workers(tmp_path, "reload")
+    _wait(procs)
+    results = [json.load(open(o)) for o in outs]
+    held = {int(d): [tuple(r) for r in runs]
+            for res in results for d, runs in res["runs"].items()}
+    assert sorted(held) == list(range(8))
+    assert all(len(runs) >= 2 for runs in held.values()), held
+    before = results[0]["before"]
+    assert results[1]["before"] == before
+    sb = ShardedBrisk.load_multihost_checkpoint(
+        str(tmp_path / "ckpt_reload"), device="cpu", **GEOMETRY)
+    for d in range(8):
+        runs = sb._skl_segments[d]
+        assert len(runs) >= 2 and runs[-1][1] == held[d][-1][1], (d, runs)
+        assert all(a[1] == c[0] for a, c in zip(runs, runs[1:]))
+    exp = {}
+    for c in range(2):
+        path = write_fasta(str(tmp_path / f"c{c}.fa"), cycle_records(c))
+        for kv, n in pyref.count_fasta(path, K, M).items():
+            exp[kv] = (exp.get(kv, 0) + n) % 256
+    got = [sb.get_canonical(s) for s in reload_sample()]
+    assert got == before
+    for s, c in zip(reload_sample(), got):
+        v = pyref.str2num(s)
+        assert c == exp.get(v, exp.get(pyref.revcomp(v, K))), s
+
+
 if __name__ == "__main__":
-    worker(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    main_fn = reload_worker if sys.argv[5:6] == ["reload"] else worker
+    main_fn(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
