@@ -3,9 +3,10 @@
 Each kernel lives in `csrc/*.cu` with a plain C entry point, is compiled
 by `nvcc` for sm_90a into a shared library under `_build/` (named by the
 source's content hash and flags, so an edited source rebuilds) at first
-use, one library per s_max (its one compile-time shape, -DBRISK_S_MAX),
-and is called through ctypes on PyTorch's current stream. Nothing is
-built or loaded at import.
+use, and is called through ctypes on PyTorch's current stream. The span
+expansion is built once per s_max (its one compile-time shape,
+-DBRISK_S_MAX); the other sources once each. Nothing is built or loaded
+at import.
 
 A wrapper checks device, dtype, contiguity and shapes and raises on
 anything else; it raises when the launch reports a CUDA error; it adds
@@ -17,6 +18,14 @@ kernel sits next to its caller (the CPU path and the reference).
                          _expand_span_jmajor_pallas; J-major or
                          row-major (LAUNCHES "expand_span_jmajor",
                          "expand_span_rowmajor")
+    state_scan           csrc/state_scan.cu    replaces the lax.scan of
+                         brisk_tpu/ops/enumerate.py enumerate_batch (the
+                         per-position minimizer state machine); plain
+                         version ops.enumerate._state_machine_torch
+    rescan               csrc/rescan.cu        replaces the XLA pass
+                         brisk_tpu/ops/minimizer.py
+                         windowed_get_minimizer; plain version
+                         ops.minimizer.windowed_get_minimizer_torch
 """
 
 import concurrent.futures
@@ -24,6 +33,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+from typing import NamedTuple
 
 import torch
 
@@ -31,13 +41,36 @@ from brisk_tpu_torch.index import store
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(_DIR, "_build")
-_SOURCES = {"expand_span": os.path.join(_DIR, "csrc", "expand_span.cu")}
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+
+
+class _Source(NamedTuple):
+    path: str
+    entry: str          # the C entry point
+    argtypes: list
+    per_s_max: bool     # one library per s_max (-DBRISK_S_MAX)
+
+
+_SOURCES = {
+    "expand_span": _Source(os.path.join(_DIR, "csrc", "expand_span.cu"),
+                           "brisk_expand_span",
+                           [_PTR] * 4 + [_INT] * 8 + [_PTR], True),
+    "state_scan": _Source(os.path.join(_DIR, "csrc", "state_scan.cu"),
+                          "brisk_state_scan",
+                          [_PTR, _PTR] + [_INT] * 4 + [_PTR], False),
+    "rescan": _Source(os.path.join(_DIR, "csrc", "rescan.cu"),
+                      "brisk_rescan",
+                      [_PTR, _PTR, _PTR] + [_INT] * 4 + [_PTR], False),
+}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAYOUTS = {"jmajor": 0, "rowmajor": 1}
-LAUNCHES = {"expand_span_jmajor": 0, "expand_span_rowmajor": 0}
-_libs = {}  # (name, s_max) -> loaded library
+LAUNCHES = {"expand_span_jmajor": 0, "expand_span_rowmajor": 0,
+            "state_scan": 0, "rescan": 0}
+# dtypes of a MinimizerState's 7 fields (rev is bool)
+_STATE_DTYPES = (torch.int64,) * 3 + (torch.bool,) + (torch.int64,) * 3
+_libs = {}  # (name, s_max or None) -> loaded library
 BUILD_LOG = {}  # library name -> nvcc output (ptxas register report)
 
 
@@ -49,16 +82,16 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def _build_so(name: str, s_max: int) -> str:
-    """Compile one CUDA source at one s_max into
-    `_build/lib<name>_s<s_max>_<hash>.so` (once per source content and
+def _build_so(name: str, s_max) -> str:
+    """Compile one CUDA source (at one s_max, for the span expansion) into
+    `_build/lib<name>[_s<s_max>]_<hash>.so` (once per source content and
     flags); returns the library's path."""
-    src = _SOURCES[name]
-    flags = NVCC_FLAGS + [f"-DBRISK_S_MAX={s_max}"]
+    src = _SOURCES[name].path
+    flags = NVCC_FLAGS + ([f"-DBRISK_S_MAX={s_max}"] if s_max else [])
     with open(src, "rb") as fh:
         digest = hashlib.sha256(fh.read()
                                 + " ".join(flags).encode()).hexdigest()
-    tag = f"{name}_s{s_max}"
+    tag = f"{name}_s{s_max}" if s_max else name
     so = os.path.join(_BUILD_DIR, f"lib{tag}_{digest[:16]}.so")
     if not os.path.exists(so):
         os.makedirs(_BUILD_DIR, exist_ok=True)
@@ -72,35 +105,38 @@ def _build_so(name: str, s_max: int) -> str:
     return so
 
 
-def _library(name: str, s_max: int) -> ctypes.CDLL:
-    """Build (once per source content) and load one kernel library."""
-    if (name, s_max) in _libs:
-        return _libs[name, s_max]
-    lib = ctypes.CDLL(_build_so(name, s_max))
-    fn = lib.brisk_expand_span
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _libs[name, s_max] = lib
-    return lib
+def _entry(name: str, s_max=None):
+    """Build (once per source content) and load one kernel library;
+    returns its C entry point with its argument types set."""
+    if (name, s_max) not in _libs:
+        src = _SOURCES[name]
+        lib = ctypes.CDLL(_build_so(name, s_max))
+        fn = getattr(lib, src.entry)
+        fn.argtypes = src.argtypes
+        fn.restype = ctypes.c_int
+        _libs[name, s_max] = lib
+    return getattr(_libs[name, s_max], _SOURCES[name].entry)
 
 
 def build(s_maxes=(8,)) -> dict:
-    """Build and load every kernel library at each s_max now, one nvcc per
-    library, all started together; returns the build logs. s_max is 8 at
-    every configuration with m <= k - 4."""
-    jobs = [(name, s) for name in _SOURCES for s in s_maxes]
+    """Build and load every kernel library now (the span expansion at each
+    s_max, the others once), one nvcc per library, all started together;
+    returns the build logs. s_max is 8 at every configuration with
+    m <= k - 4."""
+    jobs = [(name, s) for name, src in _SOURCES.items()
+            for s in (s_maxes if src.per_s_max else (None,))]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        list(pool.map(lambda job: _library(*job), jobs))
+        list(pool.map(lambda job: _entry(*job), jobs))
     return dict(BUILD_LOG)
 
 
-def _check(t: torch.Tensor, what: str, shape: tuple, device) -> None:
+def _check(t: torch.Tensor, what: str, shape: tuple, device,
+           dtype=torch.int32) -> None:
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor on {device}, "
                          f"got {t.device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{what}: expected int32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{what}: expected shape {shape}, got "
                          f"{tuple(t.shape)}")
@@ -131,15 +167,10 @@ def expand_span(sb: torch.Tensor, sm: torch.Tensor, sn: torch.Tensor,
     out = torch.empty((W, s_max * R), dtype=torch.int32, device=dev)
     if R == 0:
         return out
-    fn = _library("expand_span", s_max).brisk_expand_span
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(sb.data_ptr(), sm.data_ptr(), sn.data_ptr(), out.data_ptr(),
-                R, k, m, b, s_max, nw, W, LAYOUTS[layout], stream)
-    if rc != 0:
-        raise RuntimeError(f"expand_span ({layout}) launch failed: "
-                           f"cudaError {rc}")
-    LAUNCHES["expand_span_" + layout] += 1
+    fn = _entry("expand_span", s_max)
+    _launch("expand_span_" + layout, fn, (
+        sb.data_ptr(), sm.data_ptr(), sn.data_ptr(), out.data_ptr(), R, k,
+        m, b, s_max, nw, W, LAYOUTS[layout]), dev)
     return out
 
 
@@ -147,3 +178,92 @@ def expand_span_jmajor(sb: torch.Tensor, sm: torch.Tensor, sn: torch.Tensor,
                        k: int, m: int, b: int, s_max: int) -> torch.Tensor:
     """The J-major CUDA span expansion (expand_span, layout "jmajor")."""
     return expand_span(sb, sm, sn, k, m, b, s_max, layout="jmajor")
+
+
+def _launch(name: str, fn, args: tuple, dev) -> None:
+    """Call one C entry on `dev`'s current stream; raise on its error."""
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
+
+
+def _ptrs(tensors) -> ctypes.Array:
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
+
+
+def state_scan(cand: tuple, rescan: tuple, state0: tuple,
+               fresh: torch.Tensor, km: int, margin: int):
+    """CUDA minimizer state machine (the contract of
+    ops.enumerate._state_machine_torch). cand = (heavy, hash_hi,
+    hash_lo, canon_lo, canon_hi, is_rc) and rescan (a MinimizerState's 7
+    fields) are (B, L_buf) tensors, read at columns [margin, L_buf);
+    state0 (7 fields) and fresh are (B,). Returns ([boundary, rev, pos,
+    mini, h], final): (B, L_out) bool, bool, int64, int64 (lo | hi << 32)
+    and int64 (hashing.pack_hash), and the 7 final-state fields (B,)."""
+    if len(cand) != 6 or len(rescan) != 7 or len(state0) != 7:
+        raise ValueError("state_scan: expected 6 candidate, 7 rescan and "
+                         "7 state fields")
+    if fresh.dim() != 1 or cand[0].dim() != 2:
+        raise ValueError(f"unsupported shapes: fresh {tuple(fresh.shape)}, "
+                         f"candidates {tuple(cand[0].shape)}")
+    B, L_buf = cand[0].shape
+    if not 0 <= margin <= L_buf or fresh.shape[0] != B:
+        raise ValueError(f"unsupported shapes: fresh {tuple(fresh.shape)}, "
+                         f"candidates {(B, L_buf)}, margin {margin}")
+    dev = fresh.device
+    row_dtypes = (torch.int64,) * 5 + (torch.bool,) + _STATE_DTYPES
+    for i, (t, dt) in enumerate(zip(cand + tuple(rescan), row_dtypes)):
+        _check(t, f"state_scan input {i}", (B, L_buf), dev, dt)
+    for i, (t, dt) in enumerate(zip(state0, _STATE_DTYPES)):
+        _check(t, f"state_scan state field {i}", (B,), dev, dt)
+    _check(fresh, "fresh", (B,), dev, torch.bool)
+    L_out = L_buf - margin
+    rows = [torch.empty((B, L_out), dtype=dt, device=dev) for dt in (
+        torch.bool, torch.bool, torch.int64, torch.int64, torch.int64)]
+    final = tuple(torch.empty(B, dtype=dt, device=dev)
+                  for dt in _STATE_DTYPES)
+    if B == 0:
+        return rows, final
+    fn = _entry("state_scan")
+    _launch("state_scan", fn, (
+        _ptrs(cand + tuple(rescan) + tuple(state0) + (fresh,)),
+        _ptrs(rows + list(final)), B, L_buf, margin, km), dev)
+    return rows, final
+
+
+def rescan(canon: tuple, cand_hash: tuple, scan_rev: torch.Tensor,
+           kmer4: tuple, coef: torch.Tensor, k_arg: int, m: int,
+           with_unique: bool = False):
+    """CUDA get_minimizer rescan (the contract of
+    ops.minimizer.windowed_get_minimizer_torch). canon = (lo, hi),
+    cand_hash = (heavy, hi, lo) and the 4 k-mer limbs are int64 (R, L)
+    tensors, scan_rev bool (R, L); coef is the (4m,) float64 decycling
+    table (pyref.get_decycling(m).coef) on the same card. Returns the 7
+    MinimizerState fields, (R, L) each, and with_unique also the bool
+    unique-minimum flags."""
+    if len(canon) != 2 or len(cand_hash) != 3 or len(kmer4) != 4:
+        raise ValueError("rescan: expected 2 canonical, 3 hash and 4 "
+                         "k-mer limbs")
+    if scan_rev.dim() != 2 or not 1 <= m <= 31 or not m <= k_arg <= 63:
+        raise ValueError(f"unsupported shapes: scan_rev "
+                         f"{tuple(scan_rev.shape)}, k_arg={k_arg}, m={m}")
+    R, L = scan_rev.shape
+    dev = scan_rev.device
+    ins = tuple(canon) + tuple(cand_hash) + (scan_rev,) + tuple(kmer4)
+    dtypes = (torch.int64,) * 5 + (torch.bool,) + (torch.int64,) * 4
+    for i, (t, dt) in enumerate(zip(ins, dtypes)):
+        _check(t, f"rescan input {i}", (R, L), dev, dt)
+    _check(coef, "coef", (4 * m,), dev, torch.float64)
+    outs = [torch.empty((R, L), dtype=dt, device=dev)
+            for dt in _STATE_DTYPES]
+    unique = (torch.empty((R, L), dtype=torch.bool, device=dev)
+              if with_unique else None)
+    if R * L > 0:
+        fn = _entry("rescan")
+        _launch("rescan", fn, (_ptrs(ins), _ptrs(outs + [unique]),
+                               coef.data_ptr(), R, L, k_arg, m), dev)
+    return (tuple(outs), unique) if with_unique else tuple(outs)

@@ -24,6 +24,15 @@ def _coef_rows(m: int):
     return [coef[4 * i: 4 * i + 4] for i in range(m)]
 
 
+@functools.lru_cache(maxsize=None)
+def coef_table(m: int, device) -> torch.Tensor:
+    """The reference's (4m,) float64 coef table as one tensor on `device`
+    (the rescan kernel's input: computed on the host, never with device
+    sin/cos)."""
+    return torch.tensor(pyref.get_decycling(m).coef, dtype=torch.float64,
+                        device=device)
+
+
 def _compute_r(seq: torch.Tensor, m: int) -> torch.Tensor:
     rows = _coef_rows(m)
     table = torch.tensor(rows, dtype=torch.float64, device=seq.device)

@@ -12,9 +12,12 @@ control flow literally (Kmers.cpp:509-613):
     elif cand_hash < hash:    state = rolling candidate        (new mini)
     emit k-mer in fwd or RC orientation per state.reversed
 
-In this port the state machine is a plain Python loop over positions on
-(B,) tensors (`_state_machine`); the hash triple and the minimizer each
-ride as ONE int64 so a step is a dozen elementwise ops.
+`_state_machine` runs it on a CUDA tensor as one hand-written kernel
+(kernels.state_scan, csrc/state_scan.cu: one thread per lane over its
+positions, the port of the reference's lax.scan) and on the CPU as its
+plain version, a Python loop over positions on (B,) tensors
+(`_state_machine_torch`); the hash triple and the minimizer each ride as
+ONE int64 so a step is a dozen elementwise ops.
 
 Layout contract for a (B, L_buf) codes buffer with margin = k-1 is the
 reference's: fresh lanes start at index 0; continuing lanes hold their
@@ -27,6 +30,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from brisk_tpu_torch import kernels
 from brisk_tpu_torch._u32 import M32
 from brisk_tpu_torch.ops import hashing, minimizer, u128
 from brisk_tpu_torch.ops.minimizer import MinimizerState
@@ -63,7 +67,22 @@ def _cols(x: torch.Tensor, margin: int) -> torch.Tensor:
 def _state_machine(state0: MinimizerState, pa, rescan, fresh, km: int,
                    margin: int):
     """Run the per-position machine; returns per-position (B, L_out)
-    outputs and the final state."""
+    outputs [boundary, rev, pos, mini, h] and the final state. On a CUDA
+    tensor the kernel (kernels.state_scan), on the CPU the plain
+    version."""
+    if fresh.device.type != "cuda":
+        return _state_machine_torch(state0, pa, rescan, fresh, km, margin)
+    cand = tuple(pa.cand_hash) + tuple(pa.canon_m) + (pa.cand_is_rc,)
+    rows, final = kernels.state_scan(
+        *(tuple(t.contiguous() for t in ts)
+          for ts in (cand, rescan, state0)), fresh.contiguous(), km, margin)
+    return rows, MinimizerState(*final)
+
+
+def _state_machine_torch(state0: MinimizerState, pa, rescan, fresh,
+                         km: int, margin: int):
+    """The plain version of _state_machine: a Python loop over positions
+    on (B,) tensors."""
     c_h = _cols(hashing.pack_hash(*pa.cand_hash), margin)
     c_mini = _cols(pa.canon_m[0] | (pa.canon_m[1] << 32), margin)
     c_rc = _cols(pa.cand_is_rc, margin)

@@ -2,9 +2,13 @@
 rescan (port of brisk_tpu.ops.minimizer).
 
 get_minimizer (reference Kmers.cpp:367-408) is evaluated for EVERY
-position at once: a loop over window offsets i applies the literal branch
-logic (strict improvement; equal-hash closer-to-edge mirror rule;
-equal-distance strand rule) as selects over (..., L) tensors.
+position at once. On a CUDA tensor one hand-written kernel does it
+(kernels.rescan, csrc/rescan.cu: one thread per position over the
+window's offsets); on the CPU the plain version
+(`windowed_get_minimizer_torch`), a loop over window offsets i, applies
+the literal branch logic (strict improvement; equal-hash closer-to-edge
+mirror rule; equal-distance strand rule) as selects over (..., L)
+tensors.
 
 Replicated quirk (Kmers.cpp:371): the reference truncates the k-mer to
 its low 64 bits before scanning, so for k > 32 offsets with
@@ -15,7 +19,8 @@ from typing import NamedTuple
 
 import torch
 
-from brisk_tpu_torch.ops import codec, hashing, revcomp, u128
+from brisk_tpu_torch import kernels
+from brisk_tpu_torch.ops import codec, decycling, hashing, revcomp, u128
 
 
 class PositionArrays(NamedTuple):
@@ -53,11 +58,32 @@ def position_pipeline(codes: torch.Tensor, k: int, m: int) -> PositionArrays:
 def windowed_get_minimizer(pa: PositionArrays, kmer4: u128.Limbs,
                            k_arg: int, m: int, with_unique: bool = False):
     """Literal replication of get_minimizer over every position; kmer4
-    holds the k_arg-base window ending at each position.
+    holds the k_arg-base window ending at each position. On a CUDA tensor
+    the kernel (kernels.rescan), on the CPU the plain version.
 
     with_unique: also return a bool tensor marking positions whose window
     minimum hash is attained by exactly one offset (the windowed packer's
     re-sync certificate; meaningful for k_arg <= 32 only)."""
+    if pa.scan_rev.device.type != "cuda":
+        return windowed_get_minimizer_torch(pa, kmer4, k_arg, m,
+                                            with_unique)
+    def dense(ts):  # k-mer limbs can be strided slices of a padded pack
+        return tuple(t.contiguous() for t in ts)
+
+    out = kernels.rescan(
+        dense(pa.canon_m), dense(pa.cand_hash), pa.scan_rev.contiguous(),
+        dense(kmer4), decycling.coef_table(m, pa.scan_rev.device), k_arg, m,
+        with_unique)
+    if with_unique:
+        return MinimizerState(*out[0]), out[1]
+    return MinimizerState(*out)
+
+
+def windowed_get_minimizer_torch(pa: PositionArrays, kmer4: u128.Limbs,
+                                 k_arg: int, m: int,
+                                 with_unique: bool = False):
+    """The plain version of windowed_get_minimizer: a loop over the
+    window's offsets of selects over whole (..., L) tensors."""
     W = k_arg - m + 1
     canonized = revcomp.canonized_k(kmer4, k_arg)
     heavy, hhi, hlo = pa.cand_hash

@@ -18,8 +18,23 @@ both sides) in ms and Mkmer/s:
 The last two stand where the reference times its legacy per-k-mer
 insert_many and store.compact_auto, which the port does not have: the
 product insert and its finalize are what Brisk.insert_file and
-Brisk.finalize run. Prints the card's name and power limit, then one
-JSON line per stage. A CPU run (`--device cpu`) gives host times.
+Brisk.finalize run. On a card two more rows time the enumerator's
+kernels alone on one batch (bench_enumerate.measure, held to their plain
+versions first):
+
+  state_scan              kernels.state_scan (the per-position state
+                          machine): kernel ms, plain_ms, bound_ms
+  rescan                  kernels.rescan (get_minimizer at every
+                          position): kernel ms, plain_ms, bound_ms
+
+Then what the host issues per enumerate_batch call (`op_counts`): the
+non-view torch ops (counted by a TorchDispatchMode; views launch
+nothing) and the hand-kernel launches, at k=31 windowed (the insert) and
+k=63 streaming; the counts do not depend on the lane count.
+
+Prints the card's name and power limit, then one JSON line per stage. A
+CPU run (`--device cpu`) gives host times, has no kernel rows, and counts
+the plain versions' ops.
 """
 
 import argparse
@@ -104,8 +119,63 @@ def profile(dev: torch.device, k: int = 31, m: int = 11, b: int = 8,
                       n_kmers))
     rows.append(timed(dev, "insert+finalize", lambda: insert(True),
                       n_kmers))
+    if dev.type == "cuda":
+        from brisk_tpu_torch import bench_enumerate
+        for r in reversed(bench_enumerate.measure(
+                "profile", (k, m, b), batch, length, True, dev)):
+            rows.append(dict(stage=r["kernel"], ms=r["kernel_ms"],
+                             mkmer_per_s=one / r["kernel_ms"] / 1e3,
+                             calls=10, plain_ms=r["plain_ms"],
+                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                             max_abs_err=r["max_abs_err"]))
     for r in rows:
         r.update(k=k, batch=batch, length=length, stack=stack)
+    return rows
+
+
+def op_counts(dev: torch.device, batch: int = 64, length: int = 512
+              ) -> list:
+    """Non-view torch ops and kernel launches of one enumerate_batch call
+    per configuration: k=31 m=11 windowed (valid_start 20 positions in),
+    k=63 m=21 streaming; random codes (seed 1234), every lane fresh."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from brisk_tpu_torch import kernels
+    from brisk_tpu_torch.ops import enumerate as enum_ops
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                self.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    rows = []
+    for k, m, b, windowed in ((31, 11, 8, True), (63, 21, 14, False)):
+        rng = np.random.default_rng(1234)
+        l_buf = k - 1 + length
+        codes = torch.from_numpy(rng.integers(0, 4, (batch, l_buf),
+                                              dtype=np.uint8)).to(dev)
+        fresh = torch.ones(batch, dtype=torch.bool, device=dev)
+        valid_end = torch.full((batch,), l_buf, dtype=torch.int32,
+                               device=dev)
+        vs = (torch.full((batch,), k - 1 + 20, dtype=torch.int32,
+                         device=dev) if windowed else None)
+        carry = enum_ops.zero_carry(batch, dev)
+        enum_ops.enumerate_batch(codes, fresh, valid_end, carry, k, m, b,
+                                 valid_start=vs)  # warm: builds, caches
+        before = dict(kernels.LAUNCHES)
+        with Count() as count:
+            enum_ops.enumerate_batch(codes, fresh, valid_end, carry, k, m,
+                                     b, valid_start=vs)
+        launched = {name: n - before[name]
+                    for name, n in kernels.LAUNCHES.items()
+                    if n > before[name]}
+        rows.append(dict(stage="enumerate_batch_ops", k=k, m=m,
+                         windowed=windowed, batch=batch, length=length,
+                         torch_ops=count.ops, kernel_launches=launched))
     return rows
 
 
@@ -117,7 +187,7 @@ def main(argv=None) -> int:
     dev = bench.device_of(a.device)
     info = bench.card_info(dev)
     print(f"{info['device_name']}, {info['power_limit_w']}", flush=True)
-    for row in profile(dev):
+    for row in profile(dev) + op_counts(dev):
         print(json.dumps(row), flush=True)
     return 0
 

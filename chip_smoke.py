@@ -15,6 +15,11 @@ is non-zero and no final `ok` line is printed):
    rows and on rows with any meta, plus small and ragged spans; per shape
    the kernel's time, its bound and share of it, a fill_ of the output,
    the plain version and, row-major, the old path (J-major + transpose).
+   Then the enumerator's kernels, the state machine (state_scan) and the
+   get_minimizer rescan (rescan), at ragged shapes and at the shapes of
+   the insert's batch (bench geometry) and the k=63 streaming batch,
+   with their times, plain versions' times and bounds
+   (brisk_tpu_torch.bench_enumerate).
 3. fixture parity on the card: counts_dict() equals the pure-Python
    oracle (pyref.count_fasta) on data/test.fa, data/debug_test.fa and a
    fixture that exercises the exact repair and overflow paths.
@@ -32,7 +37,8 @@ is non-zero and no final `ok` line is printed):
    distinct count and 1,000 point lookups against the counter of phase
    4; then BriskData on the card against the port on the CPU, bit for
    bit, at k=31 (width 3) and k=63 through insert_file (with repairs),
-   update, reallocate and save -> load. This path launches no kernel.
+   update, reallocate and save -> load. This path launches the
+   enumerator's kernels and no span expansion.
    sharded: the sharded facade (parallel.facade.ShardedBrisk, 8 shards
    on the one card) on the same 50 Mb at the counter's geometry (8 x 256
    lanes, window 512, stack 8): n_emitted and the shadow-free query_file
@@ -66,10 +72,11 @@ is non-zero and no final `ok` line is printed):
    its scale stage.
 
 Each main-path phase zeroes the kernel launch counters before it runs
-and reads them after; comparisons with the plain versions run outside
-those windows. The second-to-last line is the kernel report (JSON), the
-last line `{"ok": true, "device": {...}}`. Needs one CUDA card; there is
-no CPU fallback.
+and reads them after, and fails unless it launched both enumerator
+kernels; comparisons with the plain versions run outside those windows.
+The second-to-last line is the kernel report (JSON), the last line
+`{"ok": true, "device": {...}}`. Needs one CUDA card; there is no CPU
+fallback.
 """
 
 import contextlib
@@ -110,6 +117,11 @@ N_RELOAD_GETS = 200
 # trace_insert: the deployment's lanes and window, one batch per stack
 TRACE_SIZE = dict(rec_bases=1_000_000, query_bases=250_000, batch=2048,
                   window=512, stack=1)
+# launches of each traced span at TRACE_SIZE measured on the card when
+# the enumerator ran as torch ops (the flush's per-position loop), printed
+# beside this run's
+LOOP_TRACE_LAUNCHES = {"flush": "10932", "finalize": "105-110",
+                       "query_join": "120-127"}
 SHARDED_PARITY = (((K, M, B), 200_000,
                    dict(n_devices=8, batch_per_shard=8, window=64,
                         stack=4)),
@@ -119,6 +131,13 @@ SHARDED_PARITY = (((K, M, B), 200_000,
 # gives s_max 5, the others 8
 KERNEL_SPANS = (((K, M, B), (1000, 1001, 1024, 12288)),
                 (K63, (1024, 12290)), ((63, 61, 1), (1027,)))
+# the enumerator's kernels at ragged shapes (lanes and positions not
+# multiples of a block or an unroll), untimed: bench_enumerate geometry
+# tuples (name, (k, m, b), B, L_out, windowed)
+ENUM_RAGGED = (("ragged-k31", (K, M, B), 33, 37, True),
+               ("ragged-k63", K63, 1000, 203, False),
+               ("one-position-k31", (K, M, B), 100, 1, False))
+ENUM_KERNELS = ("state_scan", "rescan")
 
 
 def check(cond, msg: str) -> None:
@@ -143,17 +162,29 @@ def reset_launches() -> None:
         kernels.LAUNCHES[name] = 0
 
 
-def layout_launches() -> dict:
-    return {layout: launches(layout) for layout in ("jmajor", "rowmajor")}
+def kernel_launches() -> dict:
+    """Launches since the last reset: of each span-expansion layout and of
+    each enumerator kernel."""
+    from brisk_tpu_torch import kernels
+    n = {layout: launches(layout) for layout in ("jmajor", "rowmajor")}
+    n.update({name: kernels.LAUNCHES[name] for name in ENUM_KERNELS})
+    return n
+
+
+def check_enumerated(n: dict, phase: str) -> None:
+    """The phase enumerated k-mers on the card through both enumerator
+    kernels."""
+    check(all(n[name] > 0 for name in ENUM_KERNELS),
+          f"{phase} did not launch both enumerator kernels: {n}")
 
 
 def launches(layout: str = "") -> int:
-    """Kernel launches since the last reset: of one span-expansion layout,
-    or of every kernel."""
+    """Span-expansion launches since the last reset: of one layout, or of
+    both."""
     from brisk_tpu_torch import kernels
     if layout:
         return kernels.LAUNCHES["expand_span_" + layout]
-    return sum(kernels.LAUNCHES.values())
+    return launches("jmajor") + launches("rowmajor")
 
 
 def reset_peak(dev) -> None:
@@ -253,8 +284,22 @@ def phase_kernels(dev) -> dict:
     """The span expansion in both layouts against its plain versions:
     small and ragged spans at three configurations, then the four span
     shapes of the main path (insert-shaped rows and rows with any meta),
-    each timed by bench_expand.measure."""
-    from brisk_tpu_torch import bench_expand
+    each timed by bench_expand.measure. Then the enumerator's kernels
+    (state_scan, rescan) against theirs: ragged shapes, then the insert's
+    batch at the bench geometry and the k=63 streaming batch, timed by
+    bench_enumerate.measure."""
+    import torch
+    from brisk_tpu_torch import bench_enumerate, bench_expand
+    enum = {"max_abs_err": 0, "rows": []}
+    for geo in ENUM_RAGGED + bench_enumerate.GEOMETRIES:
+        timed = geo in bench_enumerate.GEOMETRIES
+        for r in bench_enumerate.measure(*geo, dev, timed=timed):
+            enum["max_abs_err"] = max(enum["max_abs_err"], r["max_abs_err"])
+            say("kernel", **{key: v for key, v in r.items()
+                             if key not in ("bytes", "fp64_adds")})
+            if timed:
+                enum["rows"].append(r)
+        torch.cuda.empty_cache()
     worst = 0
     for (k, m, b), Rs in KERNEL_SPANS:
         for R in Rs:
@@ -281,7 +326,7 @@ def phase_kernels(dev) -> dict:
             "share_of_bound", "fill_ms", "plain_ms")},
             old_path_ms=t.get("old_path_ms"))
         shapes.append(t)
-    return dict(max_abs_err=worst, shapes=shapes)
+    return dict(max_abs_err=worst, shapes=shapes, enum=enum)
 
 
 def phase_fixtures(dev, tmp: str) -> None:
@@ -423,9 +468,10 @@ def phase_deployment(dev, tmp: str) -> dict:
         total_mod32=total & 0xFFFFFFFF, kmers_per_s=EXPECT_KMERS / query_s)
     check(total & 0xFFFFFFFF == EXPECT_KMERS,
           f"query_file total {total} != {EXPECT_KMERS}")
-    n = layout_launches()
+    n = kernel_launches()
     check(n["jmajor"] > 0 and n["rowmajor"] > 0,
           f"the main path did not launch both layouts: {n}")
+    check_enumerated(n, "the deployment")
     say("deploy-memory", peak_gib=peak_gib(dev), launches=n)
     # orientation-sensitive counts for the payload phase's point lookups
     direct = idx.get_many(sample[:N_PAYLOAD_GETS])
@@ -471,7 +517,8 @@ def phase_consolidate(dev, dep: dict) -> dict:
           "consolidate changed nb_kmers")
     check(canonical_counts(idx, sample) == want,
           "consolidate changed the lookups")
-    n = layout_launches()
+    n = kernel_launches()
+    check_enumerated(n, "the second insert")
     say("consolidate", insert2_s=insert2_s, rows_before=rows,
         rows_after=int(idx.skl.n_rows), consolidate_s=consolidate_s,
         carry_launches=carry_launches, launches=n,
@@ -488,7 +535,7 @@ def phase_consolidate(dev, dep: dict) -> dict:
     return dict(launches=n, kernel=res)
 
 
-def phase_payload(dev, dep: dict) -> None:
+def phase_payload(dev, dep: dict) -> dict:
     """BriskData (count, last position) on the deployment's 50 Mb at the
     counter's geometry, held to the counter of phase 4."""
     import torch
@@ -533,14 +580,16 @@ def phase_payload(dev, dep: dict) -> None:
         n_repaired_windows=bd.n_repaired_windows,
         capacity=st.keys.shape[1],
         bytes_per_entry=(bd.W + bd.width) * 4 * st.keys.shape[1] / n,
-        peak_gib=peak_gib(dev), expand_span_launches=launches())
+        peak_gib=peak_gib(dev), launches=kernel_launches())
     check(bd.n_emitted == EXPECT_KMERS,
           f"payload n_emitted {bd.n_emitted} != {EXPECT_KMERS}")
     check(lane0 == EXPECT_KMERS, f"payload lane-0 total {lane0}")
     check(n == dep["nb_kmers"],
           f"payload n_sorted {n} != counter nb_kmers {dep['nb_kmers']}")
     check(st.keys.device.type == dev.type, "payload state not on the card")
-    check(launches() == 0, "the payload path launched a kernel")
+    check(launches() == 0, "the payload path launched the span expansion")
+    n = kernel_launches()
+    check_enumerated(n, "the payload insert")
     sample = dep["sample"][:N_PAYLOAD_GETS]
     t = time.perf_counter()
     got = [bd.get(s) for s in sample]
@@ -554,6 +603,7 @@ def phase_payload(dev, dep: dict) -> None:
         agrees_with_counter=True)
     del bd, st
     torch.cuda.empty_cache()
+    return dict(launches=n)
 
 
 def phase_payload_parity(dev, tmp: str) -> None:
@@ -648,7 +698,7 @@ def phase_sharded(dev, dep: dict) -> dict:
     sb.finalize()
     sync(dev)
     t2 = time.perf_counter()
-    fin = layout_launches()
+    fin = kernel_launches()
     rows = [int(x) for x in sb.skl.n_rows]
     say("sharded-insert", n_shards=sb.n_shards, insert_s=t1 - t0,
         finalize_s=t2 - t1, n_emitted=sb.n_emitted, n_spilled=sb.n_spilled,
@@ -698,7 +748,8 @@ def phase_sharded(dev, dep: dict) -> dict:
     check(got == dep["got"][:N_SHARDED_GETS],
           "sharded get_canonical != the counter's counts")
     check(launches("rowmajor") > rm0, "the probes launched no kernel")
-    n = layout_launches()
+    n = kernel_launches()
+    check_enumerated(n, "the sharded insert and query")
     say("sharded-read", stats_s=stats_s, nb_kmers=st["nb_kmers"],
         index_bytes=st["index_bytes"], bytes_per_kmer=st["bytes_per_kmer"],
         query_s=query_s, query_join_s=joins["s"], query_total=total,
@@ -976,7 +1027,7 @@ def phase_trace(dev, tmp: str) -> dict:
     from brisk_tpu_torch import trace_insert
     reset_launches()
     rows = trace_insert.trace(dev, os.path.join(tmp, "trace"), **TRACE_SIZE)
-    n = layout_launches()
+    n = kernel_launches()
     check([r["span"] for r in rows] == list(trace_insert.SPANS),
           f"trace spans {[r['span'] for r in rows]}")
     for r in rows:
@@ -986,10 +1037,12 @@ def phase_trace(dev, tmp: str) -> dict:
         say("trace", span=r["span"], wall_ms=r["wall_ms"],
             untraced_wall_ms=r["untraced_wall_ms"], launches=r["launches"],
             busy_ms=r["busy_ms"], device_idle_share=r["device_idle_share"],
+            launches_as_torch_ops=LOOP_TRACE_LAUNCHES[r["span"]],
             outside_span=r["outside_span"], attempts=r["attempts"],
             top_kernel=r["top_kernels"][0]["name"][:60])
     check(n["jmajor"] > 0 and n["rowmajor"] > 0,
           f"the traced finalize and join did not launch both layouts: {n}")
+    check_enumerated(n, "the traced flush")
     return dict(launches=n)
 
 
@@ -1077,7 +1130,8 @@ def phase_k63_deploy(dev, tmp: str) -> dict:
     p = idx.params
     check((p.k, p.m, p.b) == (63, 23, 15), f"reallocate gave {p}")
     check(idx.counts_dict() == want, "reallocate changed counts_dict")
-    n = layout_launches()
+    n = kernel_launches()
+    check_enumerated(n, "the k=63 deployment")
     say("k63-stages", query_total=total, kff_bytes=os.path.getsize(out),
         npz_bytes=os.path.getsize(ckpt), peak_gib=peak_gib(dev),
         **{k_: round(v, 3) for k_, v in times.items()})
@@ -1126,7 +1180,8 @@ def phase_k63_short(dev, tmp: str) -> dict:
         t3 = time.perf_counter()
     finally:
         fasta.BatchPacker.pack = pack
-    n = layout_launches()
+    n = kernel_launches()
+    check_enumerated(n, "the k=63 short-read insert")
     geo = idx._stream_geometry(read_len)
     insert_s, finalize_s = t2 - t1, t3 - t2
     say("k63-short", warmup_s=round(t1 - t0, 3), insert_s=insert_s,
@@ -1173,6 +1228,76 @@ def phase_counter_cli(tmp: str) -> None:
                               if ln.startswith("Devices:")), None))
 
 
+def kernel_report(kern: dict, phases: dict) -> dict:
+    """The closing kernel report: per kernel its route, source, the TPU
+    kernel or XLA program it replaces, its launches summed over the
+    main-path phases (each phase's dict holds its "launches"), its worst
+    difference from its plain version and its times at the main path's
+    first shape."""
+    main_path = list(phases.values())
+    con, shard, k63, trace = (phases[name] for name in (
+        "consolidate", "sharded", "k63", "trace"))
+    per_layout = {layout: sum(r["launches"][layout] for r in main_path)
+                  for layout in ("jmajor", "rowmajor")}
+    first = kern["shapes"][0]  # finalize k=31, 2^23 rows, J-major
+    report = {"kernels": [{
+        "name": "expand_span", "route": "cuda",
+        "source": "brisk_tpu_torch/csrc/expand_span.cu",
+        "replaces": "brisk_tpu/index/sklstore.py:725",
+        "launches": sum(per_layout.values()),
+        "launches_by_layout": per_layout,
+        "max_abs_err": max(kern["max_abs_err"], con["kernel"]["max_abs_err"],
+                           shard["kernel"]["max_abs_err"],
+                           k63["kernel"]["max_abs_err"]),
+        "ms": first["kernel_ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        "library_ms": None,
+        "shapes": [{key: t.get(key) for key in (
+            "shape", "layout", "R", "kernel_ms", "bound_ms",
+            "share_of_bound", "fill_ms", "plain_ms", "old_path_ms")}
+            for t in kern["shapes"]],
+        "k63_R": k63["kernel"]["R"],
+        "k63_jmajor_ms": k63["kernel"]["jmajor_ms"],
+        "k63_jmajor_plain_ms": k63["kernel"]["jmajor_plain_ms"],
+        "consolidate_R": con["kernel"]["R"],
+        "consolidate_rowmajor_ms": con["kernel"]["rowmajor_ms"],
+        "consolidate_rowmajor_plain_ms":
+            con["kernel"]["rowmajor_plain_ms"],
+        "sharded_launches_by_layout": shard["launches"],
+        "sharded_R": shard["kernel"]["R"],
+        "sharded_jmajor_ms": shard["kernel"]["jmajor_ms"],
+        "sharded_jmajor_plain_ms": shard["kernel"]["jmajor_plain_ms"],
+        "sharded_rowmajor_ms": shard["kernel"]["rowmajor_ms"],
+        "sharded_bound_ms": shard["kernel"]["bound_ms"],
+        "trace_launches_by_layout": trace["launches"]}]}
+    sources = {"state_scan": ("brisk_tpu_torch/csrc/state_scan.cu",
+                              "brisk_tpu/ops/enumerate.py:188"),
+               "rescan": ("brisk_tpu_torch/csrc/rescan.cu",
+                          "brisk_tpu/ops/minimizer.py:79")}
+    for name in ENUM_KERNELS:
+        rows = [r for r in kern["enum"]["rows"] if r["kernel"] == name]
+        first = rows[0]  # the insert's batch at the bench geometry
+        report["kernels"].append({
+            "name": name, "route": "cuda", "source": sources[name][0],
+            "replaces": sources[name][1],
+            "launches": sum(r["launches"][name] for r in main_path),
+            "launches_by_phase": {phase: r["launches"][name]
+                                  for phase, r in phases.items()},
+            "max_abs_err": kern["enum"]["max_abs_err"],
+            "ms": first["kernel_ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": None,
+            "geometries": [{key: r.get(key) for key in (
+                "geometry", "k", "m", "B", "R", "L", "L_out", "kernel_ms",
+                "plain_ms", "bound_ms", "bound_by", "share_of_bound",
+                "bytes", "fp64_adds")} for r in rows]})
+    for k in report["kernels"]:
+        check(k["launches"] > 0 and k["max_abs_err"] == 0,
+              f"{k['name']}: {k['launches']} launches on the main path, "
+              f"max_abs_err {k['max_abs_err']}")
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1217,7 +1342,7 @@ def main() -> int:
                                              "got", "nb_kmers")}
         del dep
         torch.cuda.empty_cache()
-        run("payload", phase_payload, dev, counter)
+        pay = run("payload", phase_payload, dev, counter)
         run("payload-parity", phase_payload_parity, dev, tmp)
         # the CPU half of sharded-parity runs beside the card's phases
         ref = start_sharded_reference(tmp)
@@ -1238,40 +1363,9 @@ def main() -> int:
         run("bench-quick", phase_bench_quick, start_bench_quick(tmp))
     say("phases", **spent, total_s=round(sum(spent.values()), 1))
 
-    per_layout = {layout: sum(r["launches"][layout] for r in (
-        dep_launches, con, shard, k63, short, trace))
-        for layout in ("jmajor", "rowmajor")}
-    first = kern["shapes"][0]  # finalize k=31, 2^23 rows, J-major
-    report = {"kernels": [{
-        "name": "expand_span", "route": "cuda",
-        "source": "brisk_tpu_torch/csrc/expand_span.cu",
-        "replaces": "brisk_tpu/index/sklstore.py:725",
-        "launches": sum(per_layout.values()),
-        "launches_by_layout": per_layout,
-        "max_abs_err": max(kern["max_abs_err"], con["kernel"]["max_abs_err"],
-                           shard["kernel"]["max_abs_err"],
-                           k63["kernel"]["max_abs_err"]),
-        "ms": first["kernel_ms"], "plain_ms": first["plain_ms"],
-        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-        "library_ms": None,
-        "shapes": [{key: t.get(key) for key in (
-            "shape", "layout", "R", "kernel_ms", "bound_ms",
-            "share_of_bound", "fill_ms", "plain_ms", "old_path_ms")}
-            for t in kern["shapes"]],
-        "k63_R": k63["kernel"]["R"],
-        "k63_jmajor_ms": k63["kernel"]["jmajor_ms"],
-        "k63_jmajor_plain_ms": k63["kernel"]["jmajor_plain_ms"],
-        "consolidate_R": con["kernel"]["R"],
-        "consolidate_rowmajor_ms": con["kernel"]["rowmajor_ms"],
-        "consolidate_rowmajor_plain_ms":
-            con["kernel"]["rowmajor_plain_ms"],
-        "sharded_launches_by_layout": shard["launches"],
-        "sharded_R": shard["kernel"]["R"],
-        "sharded_jmajor_ms": shard["kernel"]["jmajor_ms"],
-        "sharded_jmajor_plain_ms": shard["kernel"]["jmajor_plain_ms"],
-        "sharded_rowmajor_ms": shard["kernel"]["rowmajor_ms"],
-        "sharded_bound_ms": shard["kernel"]["bound_ms"],
-        "trace_launches_by_layout": trace["launches"]}]}
+    report = kernel_report(kern, dict(
+        deploy=dep_launches, consolidate=con, payload=pay, sharded=shard,
+        k63=k63, k63_short=short, trace=trace))
     print(smi)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

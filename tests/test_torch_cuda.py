@@ -7,8 +7,10 @@ consolidate_all on the card against the port on the CPU, array for
 array, as are the payload store (index.payload), BriskData and the
 sharded facade (8 shards on one card); `sklstore.probe` through the
 kernel; the measurement tools (bench stages on the card against the
-CPU, the profiler trace, the profiles, bench's default device). They
-skip on a machine without a card.
+CPU, the profiler trace, the profiles, bench's default device); the
+enumerator's kernels (kernels.state_scan, kernels.rescan) against their
+plain versions, carry in and out, and their wrappers' checks. They skip
+on a machine without a card.
 This file imports no jax; on the card's machine (which has no jax) run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -448,7 +450,10 @@ def test_profiles_on_card(device):
     from brisk_tpu_torch import profile_device, profile_sort
     dev = torch.device(device)
     rows = profile_device.profile(dev, batch=256, length=256, stack=2)
-    assert len(rows) == 5 and all(r["ms"] > 0 for r in rows)
+    assert len(rows) == 7 and all(r["ms"] > 0 for r in rows)
+    assert [r["stage"] for r in rows[-2:]] == ["state_scan", "rescan"]
+    assert all(r["max_abs_err"] == 0 and r["bound_ms"] > 0
+               and r["plain_ms"] > 0 for r in rows[-2:])
     rows = profile_sort.profile(dev, n=1 << 16,
                                 row_batches=((64, 1024), (8, 8192)))
     assert len(rows) == len(profile_sort.SORTS) + 4
@@ -463,3 +468,155 @@ def test_bench_main_defaults_to_the_card(device, capsys, tmp_path):
     rec = json.loads(lines[-1])
     assert rec["device"].startswith("cuda") and rec["power_limit_w"]
     assert rec["expand_kernel_ms"] > 0
+
+
+# -- the enumerator's kernels (kernels.state_scan, kernels.rescan) against
+#    their plain versions on the card --------------------------------------
+
+def _enum_codes(B, L_buf, seed, device):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (B, L_buf))
+    codes[0, 5:L_buf - 5] = 0  # poly-A: ties at every offset
+    codes[1 % B] = np.resize([0, 1, 3, 2, 2, 3, 1, 0], L_buf)
+    return torch.from_numpy(codes).to(device)
+
+
+def _machine_inputs(B, L_buf, k, m, seed, device, carry="zero"):
+    """position arrays, the plain rescan and an initial state on the card:
+    the init for fresh lanes, else a carry (zero, or random values that
+    exercise the packing's wraparound)."""
+    from brisk_tpu_torch.ops import enumerate as enum_ops
+    from brisk_tpu_torch.ops import minimizer
+    codes = _enum_codes(B, L_buf, seed, device)
+    pa = minimizer.position_pipeline(codes, k, m)
+    res = minimizer.windowed_get_minimizer_torch(pa, pa.fwd_k, k, m)
+    rng = np.random.default_rng(seed + 1)
+    fresh = torch.from_numpy(rng.random(B) < 0.5).to(device)
+    if carry == "random":
+        state0 = [torch.from_numpy(rng.integers(0, 8, B)).to(device)
+                  for _ in range(7)]
+        state0[3] = state0[3] % 2 == 0
+        state0 = minimizer.MinimizerState(*state0)
+    else:
+        state0 = enum_ops.zero_carry(B, device)
+    return pa, res, state0, fresh
+
+
+def _assert_machine_equal(got, want):
+    (rows_g, fin_g), (rows_w, fin_w) = got, want
+    for g, w in zip(list(rows_g) + list(fin_g), list(rows_w) + list(fin_w)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k,m,B,L_out,carry", [
+    (31, 11, 33, 37, "zero"),        # B, L_out not multiples of 32 or 8
+    (31, 11, 2048, 512, "zero"),     # the bench geometry
+    (31, 11, 100, 1, "random"),      # one position
+    (63, 21, 1000, 203, "random"),   # k=63, a carry in
+])
+def test_state_scan_matches_plain_version(device, k, m, B, L_out, carry):
+    from brisk_tpu_torch.ops import enumerate as enum_ops
+    margin = k - 1
+    pa, res, state0, fresh = _machine_inputs(B, margin + L_out, k, m,
+                                             seed=B + L_out, device=device,
+                                             carry=carry)
+    want = enum_ops._state_machine_torch(state0, pa, res, fresh, k - m,
+                                         margin)
+    before = dict(kernels.LAUNCHES)
+    got = enum_ops._state_machine(state0, pa, res, fresh, k - m, margin)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["state_scan"] == before["state_scan"] + 1
+    assert kernels.LAUNCHES["rescan"] == before["rescan"]
+    _assert_machine_equal(got, want)
+
+
+def test_state_scan_carry_out_feeds_the_next_batch(device):
+    """k=63 streaming over two batches: the kernel's final state is the
+    carry in of the second batch, and both batches equal the plain
+    version's run with its own carry."""
+    from brisk_tpu_torch.ops import enumerate as enum_ops
+    k, m, b, B, L_out = 63, 21, 14, 77, 150
+    margin = k - 1
+    rec = _enum_codes(B, margin + 2 * L_out, 63, device)
+    fresh = torch.ones(B, dtype=torch.bool, device=device)
+    ve = torch.full((B,), margin + L_out, dtype=torch.int32, device=device)
+    runs = {}
+    for name in ("plain", "kernel"):
+        sm = enum_ops._state_machine
+        if name == "plain":
+            enum_ops._state_machine = enum_ops._state_machine_torch
+        try:
+            carry, out = enum_ops.zero_carry(B, device), []
+            for i, codes in enumerate((rec[:, :margin + L_out],
+                                       rec[:, L_out:].contiguous())):
+                em, carry = enum_ops.enumerate_batch(
+                    codes, fresh if i == 0 else ~fresh, ve, carry, k, m, b)
+                out.append((em, carry))
+        finally:
+            enum_ops._state_machine = sm
+        runs[name] = out
+    for (ep, cp), (ek, ck) in zip(runs["plain"], runs["kernel"]):
+        for f in ("boundary", "use_rc", "mini_idx", "mini_lo", "hash_lo",
+                  "key", "bucket"):
+            assert torch.equal(getattr(ep, f), getattr(ek, f)), f
+        for x, y in zip(cp, ck):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("k_arg,m,R,L,with_unique", [
+    (31, 11, 37, 130, True),       # R, L not multiples of the block
+    (31, 11, 2048, 542, True),     # the bench geometry's batch
+    (30, 11, 2048, 30, False),     # its fresh-lane init (k-1)
+    (63, 21, 1024, 574, False),    # k=63: truncated offsets
+    (62, 21, 1024, 62, False),
+    (31, 11, 5000, 31, False),     # rekey rows (N, k)
+    (63, 23, 5000, 63, False),     # rekey rows after reallocate
+])
+def test_rescan_matches_plain_version(device, k_arg, m, R, L, with_unique):
+    from brisk_tpu_torch.ops import minimizer
+    pa = minimizer.position_pipeline(_enum_codes(R, L, R + L, device),
+                                     k_arg, m)
+    want = minimizer.windowed_get_minimizer_torch(pa, pa.fwd_k, k_arg, m,
+                                                  with_unique)
+    before = kernels.LAUNCHES["rescan"]
+    got = minimizer.windowed_get_minimizer(pa, pa.fwd_k, k_arg, m,
+                                           with_unique)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rescan"] == before + 1
+    if with_unique:
+        assert torch.equal(got[1], want[1])
+        got, want = got[0], want[0]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_enumerator_wrappers_check_inputs(device):
+    from brisk_tpu_torch.ops import decycling, minimizer
+    k, m, B, L_out = 31, 11, 40, 50
+    pa, res, state0, fresh = _machine_inputs(B, k - 1 + L_out, k, m, 1,
+                                             device)
+    cand = tuple(pa.cand_hash) + tuple(pa.canon_m) + (pa.cand_is_rc,)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.state_scan(cand, tuple(res), tuple(state0), fresh.cpu(),
+                           k - m, k - 1)
+    with pytest.raises(TypeError):
+        kernels.state_scan(cand[:5] + (cand[5].long(),), tuple(res),
+                           tuple(state0), fresh, k - m, k - 1)
+    strided = torch.zeros((B, 2 * (k - 1 + L_out)), dtype=torch.int64,
+                          device=device)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.state_scan((strided,) + cand[1:], tuple(res), tuple(state0),
+                           fresh, k - m, k - 1)
+    coef = decycling.coef_table(m, device)
+    args = (pa.canon_m, pa.cand_hash, pa.scan_rev, pa.fwd_k)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.rescan(*args, coef.cpu(), k, m)
+    with pytest.raises(TypeError):
+        kernels.rescan(*args, coef.float(), k, m)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.rescan((strided, pa.canon_m[1]), *args[1:], coef, k, m)
+    assert kernels.LAUNCHES == before
+    assert minimizer.windowed_get_minimizer(pa, pa.fwd_k, k, m) is not None
+    assert kernels.LAUNCHES["rescan"] == before["rescan"] + 1
