@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels of the port: build, bind and launch.
 
-Each kernel lives in `csrc/*.cu` with a plain C entry point, is compiled
+Each kernel lives in `csrc/*.cu` with a plain C entry point (the
+enumerator's two share their arithmetic in `csrc/enum_math.cuh`, which a
+host compiler also builds for the CPU tests), is compiled
 by `nvcc` for sm_90a into a shared library under `_build/` (named by the
 source's content hash and flags, so an edited source rebuilds) at first
 use, and is called through ctypes on PyTorch's current stream. The span
@@ -70,7 +72,7 @@ LAUNCHES = {"expand_span_jmajor": 0, "expand_span_rowmajor": 0,
             "state_scan": 0, "rescan": 0}
 # dtypes of a MinimizerState's 7 fields (rev is bool)
 _STATE_DTYPES = (torch.int64,) * 3 + (torch.bool,) + (torch.int64,) * 3
-_libs = {}  # (name, s_max or None) -> loaded library
+_libs = {}  # (source path, s_max or None) -> loaded library
 BUILD_LOG = {}  # library name -> nvcc output (ptxas register report)
 
 
@@ -84,13 +86,18 @@ def _nvcc() -> str:
 
 def _build_so(name: str, s_max) -> str:
     """Compile one CUDA source (at one s_max, for the span expansion) into
-    `_build/lib<name>[_s<s_max>]_<hash>.so` (once per source content and
-    flags); returns the library's path."""
+    `_build/lib<name>[_s<s_max>]_<hash>.so` (once per content of the
+    source and of the headers beside it, and flags); returns the
+    library's path."""
     src = _SOURCES[name].path
     flags = NVCC_FLAGS + ([f"-DBRISK_S_MAX={s_max}"] if s_max else [])
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read()
-                                + " ".join(flags).encode()).hexdigest()
+    sha = hashlib.sha256(" ".join(flags).encode())
+    csrc = os.path.dirname(src)
+    headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(csrc, f) for f in headers]:
+        with open(path, "rb") as fh:
+            sha.update(fh.read())
+    digest = sha.hexdigest()
     tag = f"{name}_s{s_max}" if s_max else name
     so = os.path.join(_BUILD_DIR, f"lib{tag}_{digest[:16]}.so")
     if not os.path.exists(so):
@@ -108,14 +115,14 @@ def _build_so(name: str, s_max) -> str:
 def _entry(name: str, s_max=None):
     """Build (once per source content) and load one kernel library;
     returns its C entry point with its argument types set."""
-    if (name, s_max) not in _libs:
-        src = _SOURCES[name]
+    src = _SOURCES[name]
+    if (src.path, s_max) not in _libs:
         lib = ctypes.CDLL(_build_so(name, s_max))
         fn = getattr(lib, src.entry)
         fn.argtypes = src.argtypes
         fn.restype = ctypes.c_int
-        _libs[name, s_max] = lib
-    return getattr(_libs[name, s_max], _SOURCES[name].entry)
+        _libs[src.path, s_max] = lib
+    return getattr(_libs[src.path, s_max], src.entry)
 
 
 def build(s_maxes=(8,)) -> dict:
@@ -244,7 +251,13 @@ def rescan(canon: tuple, cand_hash: tuple, scan_rev: torch.Tensor,
     tensors, scan_rev bool (R, L); coef is the (4m,) float64 decycling
     table (pyref.get_decycling(m).coef) on the same card. Returns the 7
     MinimizerState fields, (R, L) each, and with_unique also the bool
-    unique-minimum flags."""
+    unique-minimum flags.
+
+    The kernel compares each candidate's hash triple as one packed int64
+    (hashing.pack_hash), which orders like the triple only while heavy
+    is in {0, 1, 2} and hi << 32 | lo < 2^62: what position_pipeline
+    makes (a decycling class, a key masked to 2m <= 62 bits), and the
+    only input the rescan receives."""
     if len(canon) != 2 or len(cand_hash) != 3 or len(kmer4) != 4:
         raise ValueError("rescan: expected 2 canonical, 3 hash and 4 "
                          "k-mer limbs")

@@ -23,9 +23,11 @@ kernels alone on one batch (bench_enumerate.measure, held to their plain
 versions first):
 
   state_scan              kernels.state_scan (the per-position state
-                          machine): kernel ms, plain_ms, bound_ms
+                          machine): ms per call, device_ms, plain_ms,
+                          bound_ms
   rescan                  kernels.rescan (get_minimizer at every
-                          position): kernel ms, plain_ms, bound_ms
+                          position): ms per call, device_ms, plain_ms,
+                          bound_ms
 
 Then what the host issues per enumerate_batch call (`op_counts`): the
 non-view torch ops (counted by a TorchDispatchMode; views launch
@@ -125,7 +127,8 @@ def profile(dev: torch.device, k: int = 31, m: int = 11, b: int = 8,
                 "profile", (k, m, b), batch, length, True, dev)):
             rows.append(dict(stage=r["kernel"], ms=r["kernel_ms"],
                              mkmer_per_s=one / r["kernel_ms"] / 1e3,
-                             calls=10, plain_ms=r["plain_ms"],
+                             calls=10, device_ms=r["device_ms"],
+                             plain_ms=r["plain_ms"],
                              bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                              max_abs_err=r["max_abs_err"]))
     for r in rows:

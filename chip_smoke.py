@@ -16,10 +16,11 @@ is non-zero and no final `ok` line is printed):
    the kernel's time, its bound and share of it, a fill_ of the output,
    the plain version and, row-major, the old path (J-major + transpose).
    Then the enumerator's kernels, the state machine (state_scan) and the
-   get_minimizer rescan (rescan), at ragged shapes and at the shapes of
-   the insert's batch (bench geometry) and the k=63 streaming batch,
-   with their times, plain versions' times and bounds
-   (brisk_tpu_torch.bench_enumerate).
+   get_minimizer rescan (rescan), at ragged shapes (lanes, tiles and
+   blocks cut short; the rescan also over fresh-lane init rows and
+   reallocate's rekey batch) and at the shapes of the insert's batch
+   (bench geometry) and the k=63 streaming batch, with their times,
+   plain versions' times and bounds (brisk_tpu_torch.bench_enumerate).
 3. fixture parity on the card: counts_dict() equals the pure-Python
    oracle (pyref.count_fasta) on data/test.fa, data/debug_test.fa and a
    fixture that exercises the exact repair and overflow paths.
@@ -131,12 +132,24 @@ SHARDED_PARITY = (((K, M, B), 200_000,
 # gives s_max 5, the others 8
 KERNEL_SPANS = (((K, M, B), (1000, 1001, 1024, 12288)),
                 (K63, (1024, 12290)), ((63, 61, 1), (1027,)))
-# the enumerator's kernels at ragged shapes (lanes and positions not
-# multiples of a block or an unroll), untimed: bench_enumerate geometry
-# tuples (name, (k, m, b), B, L_out, windowed)
+# the enumerator's kernels at ragged shapes, untimed: bench_enumerate
+# geometry tuples (name, (k, m, b), B, L_out, windowed). state_scan takes
+# lanes in groups of G (16 from B 2048, 8 from 1024, 4 from 512, 1 below
+# 256) and positions in tiles of 32: one lane, lanes not a multiple of
+# the group, L_out below a tile, one past it, and one position; the
+# rescan's blocks of 256 positions cross rows
 ENUM_RAGGED = (("ragged-k31", (K, M, B), 33, 37, True),
                ("ragged-k63", K63, 1000, 203, False),
-               ("one-position-k31", (K, M, B), 100, 1, False))
+               ("one-position-k31", (K, M, B), 100, 1, False),
+               ("one-lane-k31", (K, M, B), 1, 70, True),
+               ("group-plus-two-k31", (K, M, B), 2050, 33, True),
+               ("short-tile-k63", K63, 1031, 20, False))
+# the rescan alone over rows (bench_enumerate.measure_rows: name, k_arg,
+# m, R, L): fresh-lane inits (L = k - 1, rows shorter than a block and
+# than the k=63 window) and reallocate's rekey batch at m = 23
+ENUM_ROWS = (("init-rows-k31", K - 1, M, 4096, K - 1),
+             ("init-rows-k63", 62, 21, 4096, 62),
+             ("rekey-k63-m23", 63, 23, 65536, 63))
 ENUM_KERNELS = ("state_scan", "rescan")
 
 
@@ -287,7 +300,7 @@ def phase_kernels(dev) -> dict:
     each timed by bench_expand.measure. Then the enumerator's kernels
     (state_scan, rescan) against theirs: ragged shapes, then the insert's
     batch at the bench geometry and the k=63 streaming batch, timed by
-    bench_enumerate.measure."""
+    bench_enumerate.measure; the rescan alone over ENUM_ROWS."""
     import torch
     from brisk_tpu_torch import bench_enumerate, bench_expand
     enum = {"max_abs_err": 0, "rows": []}
@@ -299,6 +312,11 @@ def phase_kernels(dev) -> dict:
                              if key not in ("bytes", "fp64_adds")})
             if timed:
                 enum["rows"].append(r)
+        torch.cuda.empty_cache()
+    for rows in ENUM_ROWS:
+        r = bench_enumerate.measure_rows(*rows, dev)
+        enum["max_abs_err"] = max(enum["max_abs_err"], r["max_abs_err"])
+        say("kernel", **r)
         torch.cuda.empty_cache()
     worst = 0
     for (k, m, b), Rs in KERNEL_SPANS:
@@ -1284,13 +1302,14 @@ def kernel_report(kern: dict, phases: dict) -> dict:
             "launches_by_phase": {phase: r["launches"][name]
                                   for phase, r in phases.items()},
             "max_abs_err": kern["enum"]["max_abs_err"],
-            "ms": first["kernel_ms"], "plain_ms": first["plain_ms"],
+            "ms": first["device_ms"], "call_ms": first["kernel_ms"],
+            "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": None,
             "geometries": [{key: r.get(key) for key in (
-                "geometry", "k", "m", "B", "R", "L", "L_out", "kernel_ms",
-                "plain_ms", "bound_ms", "bound_by", "share_of_bound",
-                "bytes", "fp64_adds")} for r in rows]})
+                "geometry", "k", "m", "B", "R", "L", "L_out", "device_ms",
+                "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "share_of_bound", "bytes", "fp64_adds")} for r in rows]})
     for k in report["kernels"]:
         check(k["launches"] > 0 and k["max_abs_err"] == 0,
               f"{k['name']}: {k['launches']} launches on the main path, "

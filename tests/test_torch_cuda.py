@@ -514,6 +514,10 @@ def _assert_machine_equal(got, want):
     (31, 11, 2048, 512, "zero"),     # the bench geometry
     (31, 11, 100, 1, "random"),      # one position
     (63, 21, 1000, 203, "random"),   # k=63, a carry in
+    (31, 11, 1, 70, "zero"),         # one lane
+    (31, 11, 2050, 33, "random"),    # 16-lane groups + 2; a tile + 1
+    (63, 21, 1031, 20, "zero"),      # 8-lane groups + 7; under a tile
+    (31, 11, 1024, 32, "random"),    # one whole tile
 ])
 def test_state_scan_matches_plain_version(device, k, m, B, L_out, carry):
     from brisk_tpu_torch.ops import enumerate as enum_ops
@@ -572,6 +576,8 @@ def test_state_scan_carry_out_feeds_the_next_batch(device):
     (62, 21, 1024, 62, False),
     (31, 11, 5000, 31, False),     # rekey rows (N, k)
     (63, 23, 5000, 63, False),     # rekey rows after reallocate
+    (63, 23, 65536, 63, False),    # reallocate's rekey batch
+    (62, 21, 3, 62, False),        # fewer positions than a block
 ])
 def test_rescan_matches_plain_version(device, k_arg, m, R, L, with_unique):
     from brisk_tpu_torch.ops import minimizer
