@@ -156,7 +156,25 @@ def rows_from_emissions(key: torch.Tensor, bucket: torch.Tensor,
     use_rc/valid/first_valid/boundary (B, L) bool. Lanes with more than
     row_cap segments are reported in `overflow` and contribute no rows.
     Returns (row_bucket (B, row_cap) u32 with INVALID padding, row_meta,
-    row_nucs (NW, B, row_cap), overflow (B,) bool), all int64 u32.
+    row_nucs (NW, B, row_cap), overflow (B,) bool), all int64 u32. On a
+    CUDA tensor one kernel (kernels.skl_rows, csrc/skl_rows.cu: one block
+    per lane), on the CPU the plain version."""
+    if bucket.device.type != "cuda":
+        return rows_from_emissions_torch(key, bucket, mini_idx, use_rc,
+                                         valid, first_valid, boundary, k, m,
+                                         b, row_cap)
+    _, s_max, _, nw = skl_dims(k, m, b)
+    return kernels.skl_rows(*(t.contiguous() for t in (
+        key, bucket, mini_idx, use_rc, valid, first_valid, boundary)),
+        k, m, b, row_cap, s_max, nw, 2 * (k - m) + 1 > s_max)
+
+
+def rows_from_emissions_torch(key: torch.Tensor, bucket: torch.Tensor,
+                              mini_idx: torch.Tensor, use_rc: torch.Tensor,
+                              valid: torch.Tensor, first_valid: torch.Tensor,
+                              boundary: torch.Tensor, k: int, m: int,
+                              b: int, row_cap: int):
+    """The plain version of rows_from_emissions, on whole (B, L) tensors.
 
     The variable-length nucleotide assembly ORs per-position bit
     contributions over each segment. The contributions of one segment

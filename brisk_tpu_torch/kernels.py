@@ -28,6 +28,22 @@ kernel sits next to its caller (the CPU path and the reference).
                          brisk_tpu/ops/minimizer.py
                          windowed_get_minimizer; plain version
                          ops.minimizer.windowed_get_minimizer_torch
+    positions            csrc/positions.cu     replaces the XLA fusion
+                         brisk_tpu/ops/minimizer.py position_pipeline
+                         (the k- and m-base windows and the candidate at
+                         every position); plain version
+                         ops.minimizer.position_pipeline_torch
+    emit                 csrc/emit.cu          replaces the XLA fusion
+                         after the scan in brisk_tpu/ops/enumerate.py
+                         enumerate_batch (emitted k-mer, key, bucket);
+                         plain version ops.enumerate._emit_torch
+    skl_rows             csrc/skl_rows.cu      replaces the XLA program
+                         brisk_tpu/index/sklstore.py
+                         rows_from_emissions; plain version
+                         index.sklstore.rows_from_emissions_torch
+
+The last five share their arithmetic in `csrc/enum_math.cuh` and
+`csrc/flush_math.cuh`.
 """
 
 import concurrent.futures
@@ -63,13 +79,23 @@ _SOURCES = {
     "rescan": _Source(os.path.join(_DIR, "csrc", "rescan.cu"),
                       "brisk_rescan",
                       [_PTR, _PTR, _PTR] + [_INT] * 4 + [_PTR], False),
+    "positions": _Source(os.path.join(_DIR, "csrc", "positions.cu"),
+                         "brisk_positions",
+                         [_PTR] * 4 + [_INT] * 2 + [ctypes.c_longlong]
+                         + [_INT] * 2 + [_PTR], False),
+    "emit": _Source(os.path.join(_DIR, "csrc", "emit.cu"), "brisk_emit",
+                    [_PTR, _PTR] + [_INT] * 6 + [_PTR], False),
+    "skl_rows": _Source(os.path.join(_DIR, "csrc", "skl_rows.cu"),
+                        "brisk_skl_rows",
+                        [_PTR] * 4 + [_INT] * 10 + [_PTR], False),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAYOUTS = {"jmajor": 0, "rowmajor": 1}
 LAUNCHES = {"expand_span_jmajor": 0, "expand_span_rowmajor": 0,
-            "state_scan": 0, "rescan": 0}
+            "state_scan": 0, "rescan": 0, "positions": 0, "emit": 0,
+            "skl_rows": 0}
 # dtypes of a MinimizerState's 7 fields (rev is bool)
 _STATE_DTYPES = (torch.int64,) * 3 + (torch.bool,) + (torch.int64,) * 3
 _libs = {}  # (source path, s_max or None) -> loaded library
@@ -280,3 +306,116 @@ def rescan(canon: tuple, cand_hash: tuple, scan_rev: torch.Tensor,
         _launch("rescan", fn, (_ptrs(ins), _ptrs(outs + [unique]),
                                coef.data_ptr(), R, L, k_arg, m), dev)
     return (tuple(outs), unique) if with_unique else tuple(outs)
+
+
+def positions(codes: torch.Tensor, coef: torch.Tensor, k: int, m: int):
+    """CUDA position pipeline (the contract of
+    ops.minimizer.position_pipeline_torch): codes are int64 (R, L) 2-bit
+    codes whose rows may be strided (codes[:, :k-1] of a wider buffer)
+    but whose positions are adjacent; coef is the (4m,) float64 decycling
+    table on the same card. Returns the 8 PositionArrays fields in order:
+    fwd_k and rc_k (4 int64 limbs each), fwd_m, rc_m and canon_m (2
+    each), cand_hash (heavy, hi, lo), cand_is_rc and scan_rev (bool), all
+    (R, L) views of two buffers (17 int64 planes, 2 bool planes)."""
+    if codes.dim() != 2 or not 1 <= m <= 31 or not 1 <= k <= 63:
+        raise ValueError(f"unsupported shapes: codes {tuple(codes.shape)}, "
+                         f"k={k}, m={m}")
+    R, L = codes.shape
+    dev = codes.device
+    if dev.type != "cuda":
+        raise ValueError(f"codes: expected a CUDA tensor, got {dev}")
+    if codes.dtype != torch.int64:
+        raise TypeError(f"codes: expected torch.int64, got {codes.dtype}")
+    if R * L and (codes.stride(1) != 1 or (R > 1 and codes.stride(0) < L)):
+        raise ValueError(f"codes: expected adjacent positions, got strides "
+                         f"{codes.stride()}")
+    _check(coef, "coef", (4 * m,), dev, torch.float64)
+    out64 = torch.empty((17, R, L), dtype=torch.int64, device=dev)
+    out8 = torch.empty((2, R, L), dtype=torch.bool, device=dev)
+    if R * L > 0:
+        _launch("positions", _entry("positions"), (
+            codes.data_ptr(), out64.data_ptr(), out8.data_ptr(),
+            coef.data_ptr(), R, L, codes.stride(0) if R > 1 else L, k, m),
+            dev)
+    o = out64.unbind(0)
+    return (o[0:4], o[4:8], o[8:10], o[10:12], o[12:14], o[14:17],
+            out8[0], out8[1])
+
+
+def emit(rev: torch.Tensor, pos: torch.Tensor, mini: torch.Tensor,
+         h: torch.Tensor, fwd_k: tuple, rc_k: tuple, k: int, m: int,
+         b: int):
+    """CUDA emission epilogue (the contract of ops.enumerate._emit_torch):
+    rev (bool), pos, mini and h are the state machine's (B, L_out) rows;
+    fwd_k and rc_k the position pipeline's 4 int64 limbs, (B, L_buf)
+    each, read at columns [L_buf - L_out, L_buf). Returns mini_idx,
+    mini_lo, mini_hi, hash_hi, hash_lo (B, L_out), kmer and key (4, B,
+    L_out) and bucket (B, L_out), int64 views of one buffer."""
+    if len(fwd_k) != 4 or len(rc_k) != 4:
+        raise ValueError("emit: expected 4 fwd_k and 4 rc_k limbs")
+    if (rev.dim() != 2 or fwd_k[0].dim() != 2 or not 1 <= m <= 31
+            or not 0 <= b <= 15 or not m <= k <= 63):
+        raise ValueError(f"unsupported shapes: rows {tuple(rev.shape)}, "
+                         f"limbs {tuple(fwd_k[0].shape)}, k={k}, m={m}, "
+                         f"b={b}")
+    B, L_out = rev.shape
+    L_buf = fwd_k[0].shape[1]
+    if fwd_k[0].shape[0] != B or L_out > L_buf:
+        raise ValueError(f"unsupported shapes: rows {(B, L_out)}, limbs "
+                         f"{tuple(fwd_k[0].shape)}")
+    dev = rev.device
+    _check(rev, "rev", (B, L_out), dev, torch.bool)
+    for name, t in (("pos", pos), ("mini", mini), ("h", h)):
+        _check(t, name, (B, L_out), dev, torch.int64)
+    for i, t in enumerate(tuple(fwd_k) + tuple(rc_k)):
+        _check(t, f"k-mer limb {i}", (B, L_buf), dev, torch.int64)
+    out = torch.empty((14, B, L_out), dtype=torch.int64, device=dev)
+    if B * L_out > 0:
+        _launch("emit", _entry("emit"), (
+            _ptrs((rev, pos, mini, h) + tuple(fwd_k) + tuple(rc_k)),
+            out.data_ptr(), B, L_out, L_buf, k - m, m, b), dev)
+    return (out[0], out[1], out[2], out[3], out[4], out[5:9], out[9:13],
+            out[13])
+
+
+def skl_rows(key: torch.Tensor, bucket: torch.Tensor,
+             mini_idx: torch.Tensor, use_rc: torch.Tensor,
+             valid: torch.Tensor, first_valid: torch.Tensor,
+             boundary: torch.Tensor, k: int, m: int, b: int, row_cap: int,
+             s_max: int, nw: int, split: bool):
+    """CUDA super-k-mer row assembly (the contract of
+    index.sklstore.rows_from_emissions_torch): key (4, B, L), bucket and
+    mini_idx (B, L) int64; use_rc, valid, first_valid, boundary (B, L)
+    bool; s_max and nw the configuration's (sklstore.skl_dims), split
+    whether runs longer than s_max split. Returns row_bucket, row_meta
+    (B, min(L, row_cap)), row_nucs (nw, B, min(L, row_cap)) int64 views
+    of one buffer, and overflow (B,) bool."""
+    if (key.dim() != 3 or key.shape[0] != 4 or bucket.dim() != 2
+            or not 1 <= nw <= 6 or row_cap < 0 or not 1 <= m <= k <= 63
+            or not 0 <= b <= k or s_max < 1):
+        raise ValueError(f"unsupported shapes: key {tuple(key.shape)}, "
+                         f"bucket {tuple(bucket.shape)}, nw={nw}, "
+                         f"row_cap={row_cap}, k={k}, m={m}, b={b}")
+    B, L = bucket.shape
+    dev = bucket.device
+    _check(key, "key", (4, B, L), dev, torch.int64)
+    _check(bucket, "bucket", (B, L), dev, torch.int64)
+    _check(mini_idx, "mini_idx", (B, L), dev, torch.int64)
+    for name, t in (("use_rc", use_rc), ("valid", valid),
+                    ("first_valid", first_valid), ("boundary", boundary)):
+        _check(t, name, (B, L), dev, torch.bool)
+    out_w = min(L, row_cap)
+    out = torch.empty((2 + nw, B, out_w), dtype=torch.int64, device=dev)
+    if L == 0:  # no position, no row start
+        return (out[0], out[1], out[2:],
+                torch.zeros(B, dtype=torch.bool, device=dev))
+    overflow = torch.empty(B, dtype=torch.bool, device=dev)
+    carry = torch.empty((B, -(-L // 256), 3), dtype=torch.int64,
+                        device=dev)
+    if B > 0:
+        _launch("skl_rows", _entry("skl_rows"), (
+            _ptrs(tuple(key) + (bucket, mini_idx, use_rc, valid,
+                                first_valid, boundary)),
+            out.data_ptr(), overflow.data_ptr(), carry.data_ptr(), B, L,
+            row_cap, out_w, k, m, b, s_max, int(split), nw), dev)
+    return out[0], out[1], out[2:], overflow

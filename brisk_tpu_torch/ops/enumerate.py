@@ -17,7 +17,9 @@ control flow literally (Kmers.cpp:509-613):
 positions, the port of the reference's lax.scan) and on the CPU as its
 plain version, a Python loop over positions on (B,) tensors
 (`_state_machine_torch`); the hash triple and the minimizer each ride as
-ONE int64 so a step is a dozen elementwise ops.
+ONE int64 so a step is a dozen elementwise ops. The epilogue after it
+(the emitted k-mer, its key and bucket: `_emit`) is one kernel on a CUDA
+tensor (kernels.emit, csrc/emit.cu) and `_emit_torch` on the CPU.
 
 Layout contract for a (B, L_buf) codes buffer with margin = k-1 is the
 reference's: fresh lanes start at index 0; continuing lanes hold their
@@ -154,10 +156,8 @@ def enumerate_batch(codes: torch.Tensor, fresh: torch.Tensor,
     km = k - m
     (boundary, use_rc, pos_o, mini_o, h_o), final_state = _state_machine(
         state0, pa, rescan, fresh, km, margin)
-
-    mini_idx = torch.where(use_rc, km - pos_o, pos_o)
-    mini_lo, mini_hi = mini_o & M32, mini_o >> 32
-    heavy_o, hash_hi, hash_lo = hashing.unpack_hash(h_o)
+    mini_idx, mini_lo, mini_hi, hash_hi, hash_lo, kmer, key, bucket = _emit(
+        use_rc, pos_o, mini_o, h_o, pa.fwd_k, pa.rc_k, k, m, b)
 
     pos_idx = torch.arange(margin, L_buf, device=device)[None, :]
     valid = pos_idx < valid_end[:, None]
@@ -168,22 +168,7 @@ def enumerate_batch(codes: torch.Tensor, fresh: torch.Tensor,
         cert = vs == margin
         if unique is not None:
             cert = cert | torch.any(unique[:, margin:] & in_replay, dim=1)
-    else:
-        cert = torch.ones(B, dtype=torch.bool, device=device)
 
-    fwd_k = tuple(l[:, margin:] for l in pa.fwd_k)
-    rc_k = tuple(l[:, margin:] for l in pa.rc_k)
-    kmer = u128.select(use_rc, rc_k, fwd_k)
-
-    # the stored key replaces the minimizer slice of the emitted k-mer by
-    # the hash of the ACTUAL slice (hash_kmer_minimizer_inplace,
-    # Kmers.cpp:191-200), which can differ from the tracked minimizer
-    slice_mm = u128.mask_bits(u128.shr_var(kmer, mini_idx * 2), 2 * m)
-    slice_hi, slice_lo = hashing.mix_key(slice_mm[0], slice_mm[1], m)
-    key = _hash_slice_replace(kmer, mini_idx, slice_hi, slice_lo, m)
-    bucket = _bucket_id(slice_hi, slice_lo, m, b)
-
-    if windowed:
         # full machine state at the replay boundary (valid_start-1);
         # lanes whose boundary lies outside the buffer read 0 / False
         ridx = vs - margin - 1
@@ -196,17 +181,58 @@ def enumerate_batch(codes: torch.Tensor, fresh: torch.Tensor,
         replay = MinimizerState(
             mini_lo=take(mini_lo), mini_hi=take(mini_hi), pos=take(pos_o),
             rev=inr & torch.gather(use_rc, 1, gidx)[:, 0],
-            heavy=take(heavy_o), hash_hi=take(hash_hi),
+            heavy=take(hashing.unpack_hash(h_o)[0]), hash_hi=take(hash_hi),
             hash_lo=take(hash_lo))
     else:
+        cert = torch.ones(B, dtype=torch.bool, device=device)
         replay = final_state
 
     em = Emissions(
         valid=valid, boundary=boundary, use_rc=use_rc, mini_idx=mini_idx,
         mini_lo=mini_lo, mini_hi=mini_hi, hash_hi=hash_hi, hash_lo=hash_lo,
-        kmer=u128.stack(kmer), key=u128.stack(key), bucket=bucket,
-        cert=cert, replay=replay)
+        kmer=kmer, key=key, bucket=bucket, cert=cert, replay=replay)
     return em, final_state
+
+
+def _emit(use_rc, pos_o, mini_o, h_o, fwd_k: u128.Limbs, rc_k: u128.Limbs,
+          k: int, m: int, b: int):
+    """The epilogue after the state machine, at every emitting position:
+    from its (B, L_out) rows use_rc, pos, mini and h and the position
+    pipeline's (B, L_buf) k-mer limbs (read at columns [margin, L_buf)),
+    returns (mini_idx, mini_lo, mini_hi, hash_hi, hash_lo, kmer (4, B,
+    L_out), key (4, B, L_out), bucket). On a CUDA tensor one kernel
+    (kernels.emit), on the CPU the plain version."""
+    if use_rc.device.type != "cuda":
+        return _emit_torch(use_rc, pos_o, mini_o, h_o, fwd_k, rc_k, k, m, b)
+
+    def dense(ts):
+        return tuple(t.contiguous() for t in ts)
+
+    return kernels.emit(*dense((use_rc, pos_o, mini_o, h_o)), dense(fwd_k),
+                        dense(rc_k), k, m, b)
+
+
+def _emit_torch(use_rc, pos_o, mini_o, h_o, fwd_k: u128.Limbs,
+                rc_k: u128.Limbs, k: int, m: int, b: int):
+    """The plain version of _emit: elementwise torch ops over (B, L_out)
+    tensors."""
+    margin = fwd_k[0].shape[1] - use_rc.shape[1]
+    mini_idx = torch.where(use_rc, (k - m) - pos_o, pos_o)
+    mini_lo, mini_hi = mini_o & M32, mini_o >> 32
+    _, hash_hi, hash_lo = hashing.unpack_hash(h_o)
+    fwd = tuple(l[:, margin:] for l in fwd_k)
+    rc = tuple(l[:, margin:] for l in rc_k)
+    kmer = u128.select(use_rc, rc, fwd)
+
+    # the stored key replaces the minimizer slice of the emitted k-mer by
+    # the hash of the ACTUAL slice (hash_kmer_minimizer_inplace,
+    # Kmers.cpp:191-200), which can differ from the tracked minimizer
+    slice_mm = u128.mask_bits(u128.shr_var(kmer, mini_idx * 2), 2 * m)
+    slice_hi, slice_lo = hashing.mix_key(slice_mm[0], slice_mm[1], m)
+    key = _hash_slice_replace(kmer, mini_idx, slice_hi, slice_lo, m)
+    bucket = _bucket_id(slice_hi, slice_lo, m, b)
+    return (mini_idx, mini_lo, mini_hi, hash_hi, hash_lo, u128.stack(kmer),
+            u128.stack(key), bucket)
 
 
 def _hash_slice_replace(kmer: u128.Limbs, mini_idx: torch.Tensor,

@@ -1,6 +1,11 @@
 """Per-position minimizer pipeline and the vectorized get_minimizer
 rescan (port of brisk_tpu.ops.minimizer).
 
+position_pipeline computes every position's k- and m-base windows and
+its candidate m-mer, with its hash, at once: on a CUDA tensor one
+hand-written kernel (kernels.positions, csrc/positions.cu: one thread
+per position), on the CPU the plain version (`position_pipeline_torch`).
+
 get_minimizer (reference Kmers.cpp:367-408) is evaluated for EVERY
 position at once. On a CUDA tensor one hand-written kernel does it
 (kernels.rescan, csrc/rescan.cu: one thread per position over the
@@ -46,6 +51,21 @@ class MinimizerState(NamedTuple):
 
 
 def position_pipeline(codes: torch.Tensor, k: int, m: int) -> PositionArrays:
+    """Window values and candidates at every position of int64 (R, L)
+    2-bit codes (rows may be strided slices). On a CUDA tensor one
+    kernel (kernels.positions), on the CPU the plain version."""
+    if codes.device.type != "cuda":
+        return position_pipeline_torch(codes, k, m)
+    if codes.stride(-1) != 1:
+        codes = codes.contiguous()
+    return PositionArrays(*kernels.positions(
+        codes, decycling.coef_table(m, codes.device), k, m))
+
+
+def position_pipeline_torch(codes: torch.Tensor, k: int, m: int
+                            ) -> PositionArrays:
+    """The plain version of position_pipeline: the reference's fused pass
+    as elementwise torch ops over whole (R, L) tensors."""
     fwd_k, rc_k, fwd_m, rc_m = codec.kmer_windows(codes, k, m)
     canon_m = u128.minimum(fwd_m, rc_m)
     cand_hash = hashing.bfc_hash(canon_m[0], canon_m[1], m)

@@ -14,25 +14,36 @@ both sides) in ms and Mkmer/s:
   insert_flat_sklnative   index.pipeline.insert_flat_sklnative, one flush
                           of S batches into an empty arena
   insert+finalize         the same flush, then sklstore.finalize_device
+  finalize_device         sklstore.finalize_device alone, each call on a
+                          fresh flush's arena (the flush off the clock)
 
 The last two stand where the reference times its legacy per-k-mer
 insert_many and store.compact_auto, which the port does not have: the
 product insert and its finalize are what Brisk.insert_file and
-Brisk.finalize run. On a card two more rows time the enumerator's
+Brisk.finalize run. On a card five more rows time the enumerator's
 kernels alone on one batch (bench_enumerate.measure, held to their plain
-versions first):
+versions first), each with its ms per call, device_ms, plain_ms and
+bound_ms:
 
+  skl_rows                kernels.skl_rows (the super-k-mer rows of the
+                          batch's emissions)
+  emit                    kernels.emit (the epilogue after the scan)
   state_scan              kernels.state_scan (the per-position state
-                          machine): ms per call, device_ms, plain_ms,
-                          bound_ms
+                          machine)
   rescan                  kernels.rescan (get_minimizer at every
-                          position): ms per call, device_ms, plain_ms,
-                          bound_ms
+                          position)
+  positions               kernels.positions (the position pipeline)
 
 Then what the host issues per enumerate_batch call (`op_counts`): the
 non-view torch ops (counted by a TorchDispatchMode; views launch
 nothing) and the hand-kernel launches, at k=31 windowed (the insert) and
 k=63 streaming; the counts do not depend on the lane count.
+
+On a card the stages also report the device memory: the peak allocated
+over their timed calls (`peak_gib`) and the segments the caching
+allocator took from the driver during them (`cuda_mallocs`, after a
+first warm call; more than 0 means a call's allocations did not fit the
+cache).
 
 Prints the card's name and power limit, then one JSON line per stage. A
 CPU run (`--device cpu`) gives host times, has no kernel rows, and counts
@@ -42,6 +53,7 @@ the plain versions' ops.
 import argparse
 import json
 import sys
+import time
 
 import numpy as np
 import torch
@@ -49,11 +61,56 @@ import torch
 from brisk_tpu_torch import bench
 
 
+def _segments(dev: torch.device) -> int:
+    """cudaMalloc calls of the caching allocator so far."""
+    return torch.cuda.memory_stats(dev).get("segment.all.allocated", 0)
+
+
+def _memory(dev: torch.device, segments: int) -> dict:
+    """peak_gib since the last peak reset and cuda_mallocs since the
+    `segments` count."""
+    return dict(peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                cuda_mallocs=_segments(dev) - segments)
+
+
 def timed(dev, label: str, fn, per: int) -> dict:
     """One stage's row: bench.median_s of fn, and the k-mer rate for
-    `per` k-mers."""
+    `per` k-mers; on a card also its memory (module note) over the
+    median's calls, after one more warm call."""
+    if dev.type == "cuda":
+        fn()
+        bench.sync(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        segments = _segments(dev)
     t = bench.median_s(dev, fn)
-    return dict(stage=label, ms=1e3 * t, mkmer_per_s=per / t / 1e6, calls=3)
+    row = dict(stage=label, ms=1e3 * t, mkmer_per_s=per / t / 1e6, calls=3)
+    if dev.type == "cuda":
+        row.update(_memory(dev, segments))
+    return row
+
+
+def timed_after(dev, label: str, setup, fn, per: int, n: int = 3) -> dict:
+    """A row like timed's for fn(setup()) with setup off the clock: the
+    median of n calls after a warm one, each on a fresh setup() and
+    between synchronizes; the memory over the n timed calls of fn."""
+    times = []
+    for i in range(n + 1):
+        x = setup()
+        bench.sync(dev)
+        if i == 1 and dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+            segments = _segments(dev)
+        t0 = time.perf_counter()
+        int(fn(x))
+        bench.sync(dev)
+        if i:
+            times.append(time.perf_counter() - t0)
+        del x
+    t = sorted(times)[len(times) // 2]
+    row = dict(stage=label, ms=1e3 * t, mkmer_per_s=per / t / 1e6, calls=n)
+    if dev.type == "cuda":
+        row.update(_memory(dev, segments))
+    return row
 
 
 def profile(dev: torch.device, k: int = 31, m: int = 11, b: int = 8,
@@ -106,21 +163,21 @@ def profile(dev: torch.device, k: int = 31, m: int = 11, b: int = 8,
     nw = sklstore.skl_dims(k, m, b)[3]
     rcap = 1 << (stack * batch * row_cap - 1).bit_length()
 
-    def insert(finalize: bool):
+    def insert():
         skl = sklstore.empty(rcap, 1 << 14, nw, dev)
-        out = pipeline.insert_flat_sklnative(
+        return pipeline.insert_flat_sklnative(
             skl, chunk4, vs, ve, pipeline.zero_chain(dev), k, m, b,
             row_cap, packer.l_buf, packer.useful)
-        skl = out[0]
-        if finalize:
-            skl = sklstore.finalize_device(skl, k, m, b)
-            return skl.n_fin_kmers
-        return skl.n_rows
 
-    rows.append(timed(dev, "insert_flat_sklnative", lambda: insert(False),
+    def finalize(out):
+        return sklstore.finalize_device(out[0], k, m, b).n_fin_kmers
+
+    rows.append(timed(dev, "insert_flat_sklnative",
+                      lambda: insert()[0].n_rows, n_kmers))
+    rows.append(timed(dev, "insert+finalize", lambda: finalize(insert()),
                       n_kmers))
-    rows.append(timed(dev, "insert+finalize", lambda: insert(True),
-                      n_kmers))
+    rows.append(timed_after(dev, "finalize_device", insert, finalize,
+                            n_kmers))
     if dev.type == "cuda":
         from brisk_tpu_torch import bench_enumerate
         for r in reversed(bench_enumerate.measure(

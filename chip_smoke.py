@@ -15,12 +15,16 @@ is non-zero and no final `ok` line is printed):
    rows and on rows with any meta, plus small and ragged spans; per shape
    the kernel's time, its bound and share of it, a fill_ of the output,
    the plain version and, row-major, the old path (J-major + transpose).
-   Then the enumerator's kernels, the state machine (state_scan) and the
-   get_minimizer rescan (rescan), at ragged shapes (lanes, tiles and
-   blocks cut short; the rescan also over fresh-lane init rows and
-   reallocate's rekey batch) and at the shapes of the insert's batch
-   (bench geometry) and the k=63 streaming batch, with their times,
-   plain versions' times and bounds (brisk_tpu_torch.bench_enumerate).
+   Then the enumerator's five kernels, the position pipeline
+   (positions), the get_minimizer rescan (rescan), the state machine
+   (state_scan), the emission epilogue (emit) and the super-k-mer row
+   assembly (skl_rows), at ragged shapes (lanes, tiles, blocks and
+   chunks cut short; the position pipeline and the rescan also over the
+   fresh-lane init's strided rows, the rescan over reallocate's rekey
+   batch; the rows with ragged valid spans and overflowing lanes) and
+   at the shapes of the insert's batch (bench geometry) and the k=63
+   streaming batch, with their times, plain versions' times and bounds
+   (brisk_tpu_torch.bench_enumerate).
 3. fixture parity on the card: counts_dict() equals the pure-Python
    oracle (pyref.count_fasta) on data/test.fa, data/debug_test.fa and a
    fixture that exercises the exact repair and overflow paths.
@@ -73,8 +77,10 @@ is non-zero and no final `ok` line is printed):
    its scale stage.
 
 Each main-path phase zeroes the kernel launch counters before it runs
-and reads them after, and fails unless it launched both enumerator
-kernels; comparisons with the plain versions run outside those windows.
+and reads them after, and fails unless it launched every enumerator
+kernel (the payload index builds no super-k-mer rows, so its phase
+launches skl_rows none); comparisons with the plain versions run
+outside those windows.
 The second-to-last line is the kernel report (JSON), the last line
 `{"ok": true, "device": {...}}`. Needs one CUDA card; there is no CPU
 fallback.
@@ -137,7 +143,9 @@ KERNEL_SPANS = (((K, M, B), (1000, 1001, 1024, 12288)),
 # lanes in groups of G (16 from B 2048, 8 from 1024, 4 from 512, 1 below
 # 256) and positions in tiles of 32: one lane, lanes not a multiple of
 # the group, L_out below a tile, one past it, and one position; the
-# rescan's blocks of 256 positions cross rows
+# rescan's and the position pipeline's blocks of 256 positions cross
+# rows; skl_rows walks a lane in chunks of 256 (203 and 33 positions: one
+# chunk cut short)
 ENUM_RAGGED = (("ragged-k31", (K, M, B), 33, 37, True),
                ("ragged-k63", K63, 1000, 203, False),
                ("one-position-k31", (K, M, B), 100, 1, False),
@@ -150,7 +158,7 @@ ENUM_RAGGED = (("ragged-k31", (K, M, B), 33, 37, True),
 ENUM_ROWS = (("init-rows-k31", K - 1, M, 4096, K - 1),
              ("init-rows-k63", 62, 21, 4096, 62),
              ("rekey-k63-m23", 63, 23, 65536, 63))
-ENUM_KERNELS = ("state_scan", "rescan")
+ENUM_KERNELS = ("positions", "rescan", "state_scan", "emit", "skl_rows")
 
 
 def check(cond, msg: str) -> None:
@@ -184,11 +192,12 @@ def kernel_launches() -> dict:
     return n
 
 
-def check_enumerated(n: dict, phase: str) -> None:
-    """The phase enumerated k-mers on the card through both enumerator
-    kernels."""
-    check(all(n[name] > 0 for name in ENUM_KERNELS),
-          f"{phase} did not launch both enumerator kernels: {n}")
+def check_enumerated(n: dict, phase: str, rows: bool = True) -> None:
+    """The phase enumerated k-mers on the card through every enumerator
+    kernel and, with `rows`, built super-k-mer rows through skl_rows."""
+    names = ENUM_KERNELS if rows else ENUM_KERNELS[:-1]
+    check(all(n[name] > 0 for name in names),
+          f"{phase} did not launch every enumerator kernel: {n}")
 
 
 def launches(layout: str = "") -> int:
@@ -297,17 +306,19 @@ def phase_kernels(dev) -> dict:
     """The span expansion in both layouts against its plain versions:
     small and ragged spans at three configurations, then the four span
     shapes of the main path (insert-shaped rows and rows with any meta),
-    each timed by bench_expand.measure. Then the enumerator's kernels
-    (state_scan, rescan) against theirs: ragged shapes, then the insert's
-    batch at the bench geometry and the k=63 streaming batch, timed by
-    bench_enumerate.measure; the rescan alone over ENUM_ROWS."""
+    each timed by bench_expand.measure. Then the enumerator's five
+    kernels (ENUM_KERNELS) against theirs: ragged shapes, then the
+    insert's batch at the bench geometry and the k=63 streaming batch,
+    timed by bench_enumerate.measure; the rescan alone over ENUM_ROWS.
+    Each enumerator kernel's worst difference is kept by name."""
     import torch
     from brisk_tpu_torch import bench_enumerate, bench_expand
-    enum = {"max_abs_err": 0, "rows": []}
+    enum = {"max_abs_err": dict.fromkeys(ENUM_KERNELS, 0), "rows": []}
+    errs = enum["max_abs_err"]
     for geo in ENUM_RAGGED + bench_enumerate.GEOMETRIES:
         timed = geo in bench_enumerate.GEOMETRIES
         for r in bench_enumerate.measure(*geo, dev, timed=timed):
-            enum["max_abs_err"] = max(enum["max_abs_err"], r["max_abs_err"])
+            errs[r["kernel"]] = max(errs[r["kernel"]], r["max_abs_err"])
             say("kernel", **{key: v for key, v in r.items()
                              if key not in ("bytes", "fp64_adds")})
             if timed:
@@ -315,7 +326,7 @@ def phase_kernels(dev) -> dict:
         torch.cuda.empty_cache()
     for rows in ENUM_ROWS:
         r = bench_enumerate.measure_rows(*rows, dev)
-        enum["max_abs_err"] = max(enum["max_abs_err"], r["max_abs_err"])
+        errs["rescan"] = max(errs["rescan"], r["max_abs_err"])
         say("kernel", **r)
         torch.cuda.empty_cache()
     worst = 0
@@ -607,7 +618,7 @@ def phase_payload(dev, dep: dict) -> dict:
     check(st.keys.device.type == dev.type, "payload state not on the card")
     check(launches() == 0, "the payload path launched the span expansion")
     n = kernel_launches()
-    check_enumerated(n, "the payload insert")
+    check_enumerated(n, "the payload insert", rows=False)
     sample = dep["sample"][:N_PAYLOAD_GETS]
     t = time.perf_counter()
     got = [bd.get(s) for s in sample]
@@ -1288,10 +1299,16 @@ def kernel_report(kern: dict, phases: dict) -> dict:
         "sharded_rowmajor_ms": shard["kernel"]["rowmajor_ms"],
         "sharded_bound_ms": shard["kernel"]["bound_ms"],
         "trace_launches_by_layout": trace["launches"]}]}
-    sources = {"state_scan": ("brisk_tpu_torch/csrc/state_scan.cu",
-                              "brisk_tpu/ops/enumerate.py:188"),
+    sources = {"positions": ("brisk_tpu_torch/csrc/positions.cu",
+                             "brisk_tpu/ops/minimizer.py:54"),
                "rescan": ("brisk_tpu_torch/csrc/rescan.cu",
-                          "brisk_tpu/ops/minimizer.py:79")}
+                          "brisk_tpu/ops/minimizer.py:79"),
+               "state_scan": ("brisk_tpu_torch/csrc/state_scan.cu",
+                              "brisk_tpu/ops/enumerate.py:188"),
+               "emit": ("brisk_tpu_torch/csrc/emit.cu",
+                        "brisk_tpu/ops/enumerate.py:197"),
+               "skl_rows": ("brisk_tpu_torch/csrc/skl_rows.cu",
+                            "brisk_tpu/index/sklstore.py:168")}
     for name in ENUM_KERNELS:
         rows = [r for r in kern["enum"]["rows"] if r["kernel"] == name]
         first = rows[0]  # the insert's batch at the bench geometry
@@ -1301,13 +1318,14 @@ def kernel_report(kern: dict, phases: dict) -> dict:
             "launches": sum(r["launches"][name] for r in main_path),
             "launches_by_phase": {phase: r["launches"][name]
                                   for phase, r in phases.items()},
-            "max_abs_err": kern["enum"]["max_abs_err"],
+            "max_abs_err": kern["enum"]["max_abs_err"][name],
             "ms": first["device_ms"], "call_ms": first["kernel_ms"],
             "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": None,
             "geometries": [{key: r.get(key) for key in (
-                "geometry", "k", "m", "B", "R", "L", "L_out", "device_ms",
+                "geometry", "k", "m", "B", "R", "L", "L_out", "row_cap",
+                "device_ms",
                 "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                 "share_of_bound", "bytes", "fp64_adds")} for r in rows]})
     for k in report["kernels"]:

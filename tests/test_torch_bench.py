@@ -264,7 +264,7 @@ def test_profiles_on_the_cpu():
     rows = profile_device.profile(CPU, batch=16, length=64, stack=2)
     assert [r["stage"] for r in rows] == [
         "position_pipeline", "pipeline+rescan", "enumerate_batch",
-        "insert_flat_sklnative", "insert+finalize"]
+        "insert_flat_sklnative", "insert+finalize", "finalize_device"]
     assert all(r["ms"] > 0 and r["mkmer_per_s"] > 0 for r in rows)
     rows = profile_sort.profile(CPU, n=1 << 12,
                                 row_batches=((16, 256), (4, 1024)))

@@ -450,10 +450,13 @@ def test_profiles_on_card(device):
     from brisk_tpu_torch import profile_device, profile_sort
     dev = torch.device(device)
     rows = profile_device.profile(dev, batch=256, length=256, stack=2)
-    assert len(rows) == 7 and all(r["ms"] > 0 for r in rows)
-    assert [r["stage"] for r in rows[-2:]] == ["state_scan", "rescan"]
+    assert len(rows) == 11 and all(r["ms"] > 0 for r in rows)
+    assert all(r["peak_gib"] > 0 and r["cuda_mallocs"] >= 0
+               for r in rows[:6])
+    assert [r["stage"] for r in rows[-5:]] == [
+        "skl_rows", "emit", "state_scan", "rescan", "positions"]
     assert all(r["max_abs_err"] == 0 and r["bound_ms"] > 0
-               and r["plain_ms"] > 0 for r in rows[-2:])
+               and r["plain_ms"] > 0 for r in rows[-5:])
     rows = profile_sort.profile(dev, n=1 << 16,
                                 row_batches=((64, 1024), (8, 8192)))
     assert len(rows) == len(profile_sort.SORTS) + 4
@@ -626,3 +629,195 @@ def test_enumerator_wrappers_check_inputs(device):
     assert kernels.LAUNCHES == before
     assert minimizer.windowed_get_minimizer(pa, pa.fwd_k, k, m) is not None
     assert kernels.LAUNCHES["rescan"] == before["rescan"] + 1
+
+
+# -- the flush's kernels (kernels.positions, kernels.emit,
+#    kernels.skl_rows) against their plain versions on the card ------------
+
+def _assert_tuples_equal(got, want):
+    for g, w in zip(got, want):
+        if isinstance(g, tuple):
+            _assert_tuples_equal(g, w)
+        else:
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k,m,R,L,init", [
+    (31, 11, 37, 130, False),     # R, L not multiples of the block
+    (31, 11, 2048, 542, False),   # the insert's batch
+    (30, 11, 2048, 30, True),     # its fresh-lane init, strided rows
+    (63, 21, 1024, 574, False),   # the k=63 streaming batch
+    (62, 21, 1024, 62, True),
+    (21, 11, 300, 90, False),
+    (63, 23, 65536, 63, False),   # reallocate's rekey rows
+    (31, 16, 50, 70, False),      # m = 16: the one-limb mixer's edge
+])
+def test_positions_matches_plain_version(device, k, m, R, L, init):
+    from brisk_tpu_torch.ops import minimizer
+    codes = _enum_codes(R, L + 7, R + L, device)
+    codes = codes[:, :L] if init else codes[:, :L].contiguous()
+    want = minimizer.position_pipeline_torch(codes, k, m)
+    before = dict(kernels.LAUNCHES)
+    got = minimizer.position_pipeline(codes, k, m)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["positions"] == before["positions"] + 1
+    _assert_tuples_equal(tuple(got), tuple(want))
+
+
+@pytest.mark.parametrize("k,m,b,B,L_out", [
+    (31, 11, 8, 33, 37), (31, 11, 8, 2048, 512), (21, 11, 8, 100, 70),
+    (63, 21, 14, 1024, 512), (63, 21, 14, 7, 1)])
+def test_emit_matches_plain_version(device, k, m, b, B, L_out):
+    from brisk_tpu_torch.ops import enumerate as enum_ops
+    margin = k - 1
+    pa, res, state0, fresh = _machine_inputs(B, margin + L_out, k, m,
+                                             seed=B + L_out, device=device,
+                                             carry="random")
+    (_, rev, pos, mini, h), _ = enum_ops._state_machine_torch(
+        state0, pa, res, fresh, k - m, margin)
+    args = (rev, pos, mini, h, pa.fwd_k, pa.rc_k, k, m, b)
+    want = enum_ops._emit_torch(*args)
+    before = dict(kernels.LAUNCHES)
+    got = enum_ops._emit(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["emit"] == before["emit"] + 1
+    _assert_tuples_equal(got, want)
+
+
+def _row_inputs(k, m, b, B, L_out, seed, device, windowed=True):
+    """Emissions of one batch on the card with ragged valid spans and a
+    hole inside a lane: rows_from_emissions' inputs (first_valid at
+    valid_start)."""
+    from brisk_tpu_torch.ops import enumerate as enum_ops
+    margin = k - 1
+    rng = np.random.default_rng(seed)
+    codes = _enum_codes(B, margin + L_out, seed, device)
+    ve = torch.from_numpy(rng.integers(margin + L_out // 2,
+                                       margin + L_out + 1, B)).to(device)
+    vs = torch.from_numpy(rng.integers(margin, margin + L_out // 4,
+                                       B)).to(device)
+    em, _ = enum_ops.enumerate_batch(
+        codes, torch.ones(B, dtype=torch.bool, device=device), ve,
+        enum_ops.zero_carry(B, device), k, m, b,
+        valid_start=vs if windowed else None)
+    pos = torch.arange(margin, margin + L_out, device=device)[None, :]
+    valid = em.valid & (pos >= vs[:, None])
+    valid[B // 2, L_out // 3: L_out // 3 + 5] = False
+    first_valid = pos == vs[:, None]
+    return (em.key, em.bucket, em.mini_idx, em.use_rc, valid, first_valid,
+            em.boundary)
+
+
+@pytest.mark.parametrize("k,m,b,B,L_out,row_cap", [
+    (31, 11, 8, 2048, 512, 128),   # the insert's batch and row_cap
+    (31, 11, 8, 33, 37, 4),        # overflow lanes; under one chunk
+    (31, 11, 8, 40, 600, 4),       # three chunks, overflow
+    (31, 11, 8, 40, 600, 600),     # every position has its slot
+    (21, 11, 8, 64, 257, 16),      # a chunk and one position
+    (63, 21, 14, 1024, 512, 128),  # the k=63 streaming batch: split runs
+    (63, 21, 14, 9, 300, 4),
+])
+def test_skl_rows_matches_plain_version(device, k, m, b, B, L_out, row_cap):
+    args = _row_inputs(k, m, b, B, L_out, B + L_out, device,
+                       windowed=k <= 32)
+    want = sklstore.rows_from_emissions_torch(*args, k, m, b, row_cap)
+    before = dict(kernels.LAUNCHES)
+    got = sklstore.rows_from_emissions(*args, k, m, b, row_cap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["skl_rows"] == before["skl_rows"] + 1
+    _assert_tuples_equal(got, want)
+    if row_cap == 4:
+        assert bool(want[3].any())
+
+
+@pytest.mark.parametrize("k,m,b,windowed", [(31, 11, 8, True),
+                                           (63, 21, 14, False)])
+def test_enumerate_batch_on_card_matches_cpu(device, k, m, b, windowed):
+    """enumerate_batch through the five enumerator kernels equals the CPU
+    port's (the plain versions) field for field, replay included."""
+    from brisk_tpu_torch.ops import enumerate as enum_ops
+    B, L_out, margin = 300, 200, k - 1
+    rng = np.random.default_rng(k)
+    codes = _enum_codes(B, margin + L_out, k, "cpu")
+    fresh = torch.from_numpy(rng.random(B) < 0.7)
+    ve = torch.from_numpy(rng.integers(margin, margin + L_out + 1, B))
+    vs = (torch.from_numpy(rng.integers(margin, margin + 60, B))
+          if windowed else None)
+    carry = enum_ops.zero_carry(B)
+    want, want_fin = enum_ops.enumerate_batch(codes, fresh, ve, carry, k, m,
+                                              b, valid_start=vs)
+    before = dict(kernels.LAUNCHES)
+    got, got_fin = enum_ops.enumerate_batch(
+        codes.to(device), fresh.to(device), ve.to(device),
+        enum_ops.zero_carry(B, device), k, m, b,
+        valid_start=None if vs is None else vs.to(device))
+    torch.cuda.synchronize()
+    for name in ("positions", "rescan", "state_scan", "emit"):
+        assert kernels.LAUNCHES[name] > before[name], name
+    for f in got._fields:
+        g, w = getattr(got, f), getattr(want, f)
+        for x, y in zip(g, w) if f == "replay" else ((g, w),):
+            assert torch.equal(x.cpu(), y), f
+    for x, y in zip(got_fin, want_fin):
+        assert torch.equal(x.cpu(), y)
+
+
+def test_insert_on_card_matches_cpu(device):
+    """One k=31 insert (windowed lanes with repairs and an overflow: the
+    repair fixture's record at batch 16, window 64) gives the CPU port's
+    arena on the card, and went through all six kernels' enumerator and
+    row paths."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = tmp + "/repair.fa"
+        _write_repair_input(path)
+        built = []
+        for dev in ("cpu", device):
+            before = dict(kernels.LAUNCHES)
+            br = Brisk(Parameters(31, 11, 8), batch=16, window=64,
+                       device=dev)
+            br.insert_file(path)
+            br.insert_file("data/test.fa")
+            br._drain()
+            built.append((br, _rows(br.skl), dict(kernels.LAUNCHES)))
+        (cpu, cpu_rows, _), (card, card_rows, after) = built
+        _assert_rows_equal(cpu_rows, card_rows)
+        for name in ("positions", "emit", "skl_rows", "state_scan",
+                     "rescan"):
+            assert after[name] > before[name], name
+        assert card.n_emitted == cpu.n_emitted
+        assert card.counts_dict() == cpu.counts_dict()
+
+
+def test_flush_wrappers_check_inputs(device):
+    from brisk_tpu_torch.ops import decycling, minimizer
+    k, m, b = 31, 11, 8
+    codes = _enum_codes(20, 80, 3, device)
+    coef = decycling.coef_table(m, device)
+    pa = minimizer.position_pipeline_torch(codes, k, m)
+    args = _row_inputs(k, m, b, 20, 60, 1, device)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(TypeError):
+        kernels.positions(codes.to(torch.int32), coef, k, m)
+    with pytest.raises(ValueError, match="adjacent"):
+        kernels.positions(codes[:, ::2], coef, k, m)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.positions(codes, coef.cpu(), k, m)
+    i64 = torch.zeros((20, 50), dtype=torch.int64, device=device)
+    rev = torch.zeros((20, 50), dtype=torch.bool, device=device)
+    with pytest.raises(TypeError):
+        kernels.emit(rev.long(), i64, i64, i64, pa.fwd_k, pa.rc_k, k, m, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.emit(rev, i64, i64, i64,
+                     (pa.fwd_k[0].t().contiguous().t(),)
+                     + pa.fwd_k[1:], pa.rc_k, k, m, b)
+    from brisk_tpu_torch.index import sklstore
+    _, s_max, _, nw = sklstore.skl_dims(k, m, b)
+    dims = (s_max, nw, True)
+    with pytest.raises(TypeError):
+        kernels.skl_rows(args[0].int(), *args[1:], k, m, b, 8, *dims)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.skl_rows(*args[:4], args[4].cpu(), *args[5:], k, m, b, 8,
+                         *dims)
+    assert kernels.LAUNCHES == before
