@@ -26,12 +26,14 @@ rescan's past clean_max at k > 32, the position pipeline's decycling
 sums) over the card's float64 addition rate. No single PyTorch call
 computes any of these functions (`library_ms` null). One JSON line per
 kernel and geometry, after the card's name and power limit; needs a
-CUDA card.
+CUDA card. Last, the position pipeline alone over reallocate's rekey
+rows (REKEY_ROWS), timed the same way.
 
 `--against DIR` (repeatable) also builds each of the five kernels whose
 source another checkout holds (DIR is its `brisk_tpu_torch/csrc`, e.g. a
 parent commit unpacked with `git archive` into a gitignored directory;
-the C entries must be this tree's) and times them in turns with this
+the C entries must be this tree's; a chunked skl_rows gets its older
+scratch) and times them in turns with this
 tree's (other, this, this, other), by device time: `against` lists each
 DIR's two times and its `max_abs_err` to the plain version,
 `device_ms_turns` this tree's two.
@@ -61,6 +63,9 @@ GEOMETRIES = (
     ("insert-k31", (31, 11, 8), 2048, 512, True),
     ("stream-k63", (63, 21, 14), 1024, 512, False),
 )
+# (name, k, m, R, L): reallocate's rekey rows at k=63 (rekey._rekey_batch
+# runs the position pipeline over 65,536 rows of one k-mer each, m = 23)
+REKEY_ROWS = ("rekey-k63-m23", 63, 23, 65536, 63)
 
 
 def rescan_work(R: int, L: int, k_arg: int, m: int, with_unique: bool):
@@ -151,20 +156,53 @@ def has_source(csrc: str, name: str) -> bool:
     return os.path.exists(os.path.join(csrc, name + ".cu"))
 
 
+def chunked_skl_rows(key, bucket, mini_idx, use_rc, valid, first_valid,
+                     boundary, k, m, b, row_cap, s_max, nw, split):
+    """kernels.skl_rows for a skl_rows.cu of the chunked design (one from
+    before kRowTile), whose C entry takes a (B, ceil(L / 256), 3) int64
+    scratch at every L: the same launch with that scratch.
+
+    Only the tree before the tiled skl_rows has that C entry, so this
+    shim serves only to time this tree against that one (the paired
+    skl_rows times in PERF.md). No later parent needs it: the next
+    change to this module removes it, with the kRowTile test in
+    kernels_from."""
+    B, L = bucket.shape
+    dev = bucket.device
+    out_w = min(L, row_cap)
+    out = torch.empty((2 + nw, B, out_w), dtype=torch.int64, device=dev)
+    overflow = torch.empty(B, dtype=torch.bool, device=dev)
+    carry = torch.empty((B, -(-L // 256), 3), dtype=torch.int64,
+                        device=dev)
+    kernels._launch("skl_rows", kernels._entry("skl_rows"), (
+        kernels._ptrs(tuple(key) + (bucket, mini_idx, use_rc, valid,
+                                    first_valid, boundary)),
+        out.data_ptr(), overflow.data_ptr(), carry.data_ptr(), B, L,
+        row_cap, out_w, k, m, b, s_max, int(split), nw), dev)
+    return out[0], out[1], out[2:], overflow
+
+
 @contextlib.contextmanager
 def kernels_from(csrc: str):
     """Inside the block, the wrappers of the kernels of NAMES whose
     sources `csrc` holds (another checkout's, with the same C entries)
-    launch the kernels built from them."""
+    launch the kernels built from them; a chunked skl_rows source gets
+    its scratch (chunked_skl_rows)."""
     saved = {name: kernels._SOURCES[name] for name in NAMES
              if has_source(csrc, name)}
     for name in saved:
         kernels._SOURCES[name] = saved[name]._replace(
             path=os.path.join(os.path.abspath(csrc), name + ".cu"))
+    wrapper = kernels.skl_rows
+    if "skl_rows" in saved:
+        with open(os.path.join(csrc, "flush_math.cuh")) as fh:
+            if "kRowTile" not in fh.read():
+                kernels.skl_rows = chunked_skl_rows
     try:
         yield
     finally:
         kernels._SOURCES.update(saved)
+        kernels.skl_rows = wrapper
 
 
 def max_abs_err(got, want) -> int:
@@ -394,23 +432,53 @@ def measure(name: str, kmb, B: int, L_out: int, windowed: bool, dev,
 
 
 def measure_rows(name: str, k_arg: int, m: int, R: int, L: int, dev,
-                 seed: int = 1234) -> dict:
-    """The rescan alone over (R, L) rows of random codes (the rows of
-    rekey._rekey_batch at L = k, of a fresh-lane init at L = k-1) against
-    its plain version; raise on any difference."""
+                 seed: int = 1234, timed: bool = False,
+                 against: tuple = ()) -> list:
+    """The position pipeline and the rescan alone over (R, L) rows of
+    random codes (the rows of rekey._rekey_batch at L = k, of a
+    fresh-lane init at L = k-1) against their plain versions; raise on
+    any difference. With `timed`, the position pipeline's times and bound
+    as in `measure`, in turns with each `against` tree's. Returns one
+    dict each, positions first."""
     from brisk_tpu_torch.ops import minimizer
     rng = np.random.default_rng(seed)
     codes = torch.from_numpy(rng.integers(0, 4, (R, L))).to(dev)
-    pa = minimizer.position_pipeline(codes, k_arg, m)
+
+    def positions():
+        return minimizer.position_pipeline(codes, k_arg, m)
+
+    def positions_plain():
+        return minimizer.position_pipeline_torch(codes, k_arg, m)
+
+    pa = positions()
+    pos_err = max_abs_err(flat_positions(pa),
+                          flat_positions(positions_plain()))
     err = max_abs_err(
         minimizer.windowed_get_minimizer(pa, pa.fwd_k, k_arg, m),
         minimizer.windowed_get_minimizer_torch(pa, pa.fwd_k, k_arg, m))
     torch.cuda.synchronize()
-    if err:
-        raise RuntimeError(f"{name}: rescan != plain version (max_abs_err "
-                           f"{err})")
-    return dict(kernel="rescan", geometry=name, k=k_arg, m=m, R=R, L=L,
-                max_abs_err=err)
+    if pos_err or err:
+        raise RuntimeError(f"{name}: kernel != plain version (max_abs_err "
+                           f"positions {pos_err}, rescan {err})")
+    pos = dict(kernel="positions", geometry=name, k=k_arg, m=m, R=R, L=L,
+               max_abs_err=pos_err, **bound(*positions_work(R, L, m)))
+    if timed:
+        pos["device_ms"] = device_ms(positions)
+        pos["kernel_ms"] = bench_expand.time_ms(positions)
+        pos["plain_ms"] = bench_expand.time_ms(positions_plain, reps=3,
+                                               calls=1)
+        pos["share_of_bound"] = pos["bound_ms"] / pos["device_ms"]
+        pos["library_ms"] = None
+        others = tuple(d for d in against if has_source(d, "positions"))
+        if others:
+            pos.update(time_turns(positions, others))
+            want = flat_positions(positions_plain())
+            for other in pos["against"]:
+                with kernels_from(other["csrc"]):
+                    other["max_abs_err"] = max_abs_err(
+                        flat_positions(positions()), want)
+    return [pos, dict(kernel="rescan", geometry=name, k=k_arg, m=m, R=R,
+                      L=L, max_abs_err=err)]
 
 
 def main(argv=None) -> int:
@@ -429,6 +497,9 @@ def main(argv=None) -> int:
         for row in measure(name, kmb, B, L_out, windowed, dev,
                            against=tuple(args.against)):
             print(json.dumps(row), flush=True)
+    print(json.dumps(measure_rows(*REKEY_ROWS, dev, timed=True,
+                                  against=tuple(args.against))[0]),
+          flush=True)
     return 0
 
 

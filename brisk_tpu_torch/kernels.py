@@ -96,6 +96,10 @@ LAYOUTS = {"jmajor": 0, "rowmajor": 1}
 LAUNCHES = {"expand_span_jmajor": 0, "expand_span_rowmajor": 0,
             "state_scan": 0, "rescan": 0, "positions": 0, "emit": 0,
             "skl_rows": 0}
+# positions a skl_rows block takes at once (brisk::kRowTile in
+# csrc/flush_math.cuh): a longer lane needs a scratch of its tiles' entry
+# values
+ROW_TILE = 512
 # dtypes of a MinimizerState's 7 fields (rev is bool)
 _STATE_DTYPES = (torch.int64,) * 3 + (torch.bool,) + (torch.int64,) * 3
 _libs = {}  # (source path, s_max or None) -> loaded library
@@ -404,18 +408,23 @@ def skl_rows(key: torch.Tensor, bucket: torch.Tensor,
     for name, t in (("use_rc", use_rc), ("valid", valid),
                     ("first_valid", first_valid), ("boundary", boundary)):
         _check(t, name, (B, L), dev, torch.bool)
+    if L >= 2**31 - ROW_TILE:
+        raise ValueError(f"unsupported shapes: L={L} (positions and ranks "
+                         f"are int32: L < 2**31 - {ROW_TILE})")
     out_w = min(L, row_cap)
     out = torch.empty((2 + nw, B, out_w), dtype=torch.int64, device=dev)
     if L == 0:  # no position, no row start
         return (out[0], out[1], out[2:],
                 torch.zeros(B, dtype=torch.bool, device=dev))
     overflow = torch.empty(B, dtype=torch.bool, device=dev)
-    carry = torch.empty((B, -(-L // 256), 3), dtype=torch.int64,
-                        device=dev)
+    # a lane longer than one tile keeps each tile's entry values here
+    carry = (torch.empty((B, -(-L // ROW_TILE), 3), dtype=torch.int32,
+                         device=dev) if L > ROW_TILE else None)
     if B > 0:
         _launch("skl_rows", _entry("skl_rows"), (
             _ptrs(tuple(key) + (bucket, mini_idx, use_rc, valid,
                                 first_valid, boundary)),
-            out.data_ptr(), overflow.data_ptr(), carry.data_ptr(), B, L,
-            row_cap, out_w, k, m, b, s_max, int(split), nw), dev)
+            out.data_ptr(), overflow.data_ptr(),
+            None if carry is None else carry.data_ptr(), B, L, row_cap,
+            out_w, k, m, b, s_max, int(split), nw), dev)
     return out[0], out[1], out[2:], overflow

@@ -18,13 +18,13 @@ is non-zero and no final `ok` line is printed):
    Then the enumerator's five kernels, the position pipeline
    (positions), the get_minimizer rescan (rescan), the state machine
    (state_scan), the emission epilogue (emit) and the super-k-mer row
-   assembly (skl_rows), at ragged shapes (lanes, tiles, blocks and
-   chunks cut short; the position pipeline and the rescan also over the
-   fresh-lane init's strided rows, the rescan over reallocate's rekey
-   batch; the rows with ragged valid spans and overflowing lanes) and
-   at the shapes of the insert's batch (bench geometry) and the k=63
-   streaming batch, with their times, plain versions' times and bounds
-   (brisk_tpu_torch.bench_enumerate).
+   assembly (skl_rows), at ragged shapes (lanes, tiles and blocks cut
+   short; the position pipeline and the rescan also over the fresh-lane
+   init's strided rows and reallocate's rekey batch, the position
+   pipeline timed there too; the rows with ragged valid spans and
+   overflowing lanes) and at the shapes of the insert's batch (bench
+   geometry) and the k=63 streaming batch, with their times, plain
+   versions' times and bounds (brisk_tpu_torch.bench_enumerate).
 3. fixture parity on the card: counts_dict() equals the pure-Python
    oracle (pyref.count_fasta) on data/test.fa, data/debug_test.fa and a
    fixture that exercises the exact repair and overflow paths.
@@ -143,21 +143,25 @@ KERNEL_SPANS = (((K, M, B), (1000, 1001, 1024, 12288)),
 # lanes in groups of G (16 from B 2048, 8 from 1024, 4 from 512, 1 below
 # 256) and positions in tiles of 32: one lane, lanes not a multiple of
 # the group, L_out below a tile, one past it, and one position; the
-# rescan's and the position pipeline's blocks of 256 positions cross
-# rows; skl_rows walks a lane in chunks of 256 (203 and 33 positions: one
-# chunk cut short)
+# rescan's blocks of 256 positions and the position pipeline's tiles of
+# 1,024 (runs of 8) cross rows; skl_rows takes a lane in tiles of 512
+# (runs of 2): one tile cut short (203, 33 positions), one tile and one
+# position, two tiles and more (walked forward, then backward)
 ENUM_RAGGED = (("ragged-k31", (K, M, B), 33, 37, True),
                ("ragged-k63", K63, 1000, 203, False),
                ("one-position-k31", (K, M, B), 100, 1, False),
                ("one-lane-k31", (K, M, B), 1, 70, True),
                ("group-plus-two-k31", (K, M, B), 2050, 33, True),
-               ("short-tile-k63", K63, 1031, 20, False))
-# the rescan alone over rows (bench_enumerate.measure_rows: name, k_arg,
-# m, R, L): fresh-lane inits (L = k - 1, rows shorter than a block and
-# than the k=63 window) and reallocate's rekey batch at m = 23
+               ("short-tile-k63", K63, 1031, 20, False),
+               ("tile-plus-one-k63", K63, 40, 513, False),
+               ("three-tiles-k31", (K, M, B), 64, 1100, True))
+# the position pipeline and the rescan alone over rows
+# (bench_enumerate.measure_rows: name, k_arg, m, R, L): fresh-lane inits
+# (L = k - 1, rows shorter than a tile and than the k=63 window)
+# and reallocate's rekey batch at m = 23 (bench_enumerate.REKEY_ROWS)
 ENUM_ROWS = (("init-rows-k31", K - 1, M, 4096, K - 1),
              ("init-rows-k63", 62, 21, 4096, 62),
-             ("rekey-k63-m23", 63, 23, 65536, 63))
+             ("rekey-k63-m23", 63, 23, 65536, 63))  # timed for positions
 ENUM_KERNELS = ("positions", "rescan", "state_scan", "emit", "skl_rows")
 
 
@@ -309,7 +313,9 @@ def phase_kernels(dev) -> dict:
     each timed by bench_expand.measure. Then the enumerator's five
     kernels (ENUM_KERNELS) against theirs: ragged shapes, then the
     insert's batch at the bench geometry and the k=63 streaming batch,
-    timed by bench_enumerate.measure; the rescan alone over ENUM_ROWS.
+    timed by bench_enumerate.measure; the position pipeline and the
+    rescan alone over ENUM_ROWS (the position pipeline timed at the rekey
+    rows).
     Each enumerator kernel's worst difference is kept by name."""
     import torch
     from brisk_tpu_torch import bench_enumerate, bench_expand
@@ -325,9 +331,13 @@ def phase_kernels(dev) -> dict:
                 enum["rows"].append(r)
         torch.cuda.empty_cache()
     for rows in ENUM_ROWS:
-        r = bench_enumerate.measure_rows(*rows, dev)
-        errs["rescan"] = max(errs["rescan"], r["max_abs_err"])
-        say("kernel", **r)
+        timed = rows == bench_enumerate.REKEY_ROWS
+        for r in bench_enumerate.measure_rows(*rows, dev, timed=timed):
+            errs[r["kernel"]] = max(errs[r["kernel"]], r["max_abs_err"])
+            say("kernel", **{key: v for key, v in r.items()
+                             if key not in ("bytes", "fp64_adds")})
+            if timed and r["kernel"] == "positions":
+                enum["rows"].append(r)
         torch.cuda.empty_cache()
     worst = 0
     for (k, m, b), Rs in KERNEL_SPANS:

@@ -652,6 +652,12 @@ def _assert_tuples_equal(got, want):
     (21, 11, 300, 90, False),
     (63, 23, 65536, 63, False),   # reallocate's rekey rows
     (31, 16, 50, 70, False),      # m = 16: the one-limb mixer's edge
+    (31, 11, 300, 5, False),      # rows shorter than a thread's run of 8
+    (30, 11, 300, 5, True),
+    (31, 11, 300, 9, False),      # a run and one position
+    (63, 21, 8, 128, False),      # one tile of 1,024 positions exactly
+    (63, 21, 1, 1025, False),     # one tile and one position
+    (31, 11, 5, 1100, False),     # rows of 1,100
 ])
 def test_positions_matches_plain_version(device, k, m, R, L, init):
     from brisk_tpu_torch.ops import minimizer
@@ -695,7 +701,7 @@ def _row_inputs(k, m, b, B, L_out, seed, device, windowed=True):
     codes = _enum_codes(B, margin + L_out, seed, device)
     ve = torch.from_numpy(rng.integers(margin + L_out // 2,
                                        margin + L_out + 1, B)).to(device)
-    vs = torch.from_numpy(rng.integers(margin, margin + L_out // 4,
+    vs = torch.from_numpy(rng.integers(margin, margin + max(1, L_out // 4),
                                        B)).to(device)
     em, _ = enum_ops.enumerate_batch(
         codes, torch.ones(B, dtype=torch.bool, device=device), ve,
@@ -729,6 +735,31 @@ def test_skl_rows_matches_plain_version(device, k, m, b, B, L_out, row_cap):
     _assert_tuples_equal(got, want)
     if row_cap == 4:
         assert bool(want[3].any())
+
+
+@pytest.mark.parametrize("k,m,b,B,L_out,row_cap", [
+    (31, 11, 8, 64, 1, 4),         # lanes shorter than a thread's run of 2
+    (31, 11, 8, 64, 3, 4),         # a run and one position
+    (31, 11, 8, 64, 512, 512),     # one tile of 512 exactly
+    (63, 21, 14, 32, 513, 4),      # one tile and one position
+    (63, 21, 14, 16, 1100, 1100),  # three tiles, forward then backward
+    (31, 11, 8, 16, 1100, 4),
+])
+def test_skl_rows_tiles_match_plain_version(device, k, m, b, B, L_out,
+                                            row_cap):
+    """The row assembly's runs and tiles at their edges, with lane 0 all
+    invalid (no row: every slot padding)."""
+    args = list(_row_inputs(k, m, b, B, L_out, B + L_out, device,
+                            windowed=k <= 32))
+    args[4] = args[4].clone()
+    args[4][0] = False
+    want = sklstore.rows_from_emissions_torch(*args, k, m, b, row_cap)
+    before = dict(kernels.LAUNCHES)
+    got = sklstore.rows_from_emissions(*args, k, m, b, row_cap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["skl_rows"] == before["skl_rows"] + 1
+    _assert_tuples_equal(got, want)
+    assert not bool(want[3][0]) and bool((want[0][0] == 0xFFFFFFFF).all())
 
 
 @pytest.mark.parametrize("k,m,b,windowed", [(31, 11, 8, True),

@@ -52,9 +52,21 @@ def lib(tmp_path_factory):
                                    + [ctypes.c_longlong] + [_INT] * 2)
     lib.host_emit.argtypes = [_PTR, _PTR] + [_INT] * 6
     lib.host_skl_rows.argtypes = [_PTR] * 3 + [_INT] * 10
-    for fn in (lib.host_positions, lib.host_emit, lib.host_skl_rows):
+    lib.host_roll_windows.argtypes = ([_PTR, _PTR] + [_INT] * 2
+                                      + [ctypes.c_longlong] + [_INT] * 3)
+    lib.host_geometry.argtypes = [_PTR]
+    for fn in (lib.host_positions, lib.host_emit, lib.host_skl_rows,
+               lib.host_roll_windows, lib.host_geometry):
         fn.restype = ctypes.c_int
     return lib
+
+
+def _geometry(lib) -> dict:
+    """The kernels' compile-time runs and blocks, from the header."""
+    out = (ctypes.c_int * 4)()
+    assert lib.host_geometry(out) == 0
+    return dict(pos_run=out[0], pos_threads=out[1], row_run=out[2],
+                row_threads=out[3])
 
 
 def _ptrs(tensors) -> ctypes.Array:
@@ -193,3 +205,96 @@ def test_row_arithmetic_matches_plain_version(lib, k, m, b, row_cap):
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.dtype == w.dtype and torch.equal(g, w), i
     assert bool(want[3].any()) == (row_cap == 4)
+
+
+# -- the redesigned kernels' loop order: rolled windows, runs, warp scans -----
+
+def _windows(pa: t_min.PositionArrays) -> torch.Tensor:
+    """fwd_k, rc_k, fwd_m and rc_m as 12 planes."""
+    return torch.stack(pa.fwd_k + pa.rc_k + pa.fwd_m + pa.rc_m)
+
+
+@pytest.mark.parametrize("k", [1, 21, 30, 31, 32, 33, 62, 63])
+@pytest.mark.parametrize("m", [11, 16, 21, 23, 31])
+def test_rolled_windows_match_plain_version(lib, k, m):
+    """brisk::roll_run's windows from every start offset of a row (the
+    registers warmed over the max(k, m) - 1 codes before it, fewer near
+    the row's start) equal the plain version's at every position after
+    it; rows of 80 codes outlast the registers' 64 (m > k included)."""
+    R, L = 3, 80
+    codes = _codes((R, L), seed=k * 31 + m)
+    want = _windows(t_min.position_pipeline_torch(codes, k, m))
+    got = torch.zeros((12, R, L), dtype=torch.int64)
+    for start in range(L):
+        got.zero_()
+        assert lib.host_roll_windows(codes.data_ptr(), got.data_ptr(), R, L,
+                                     L, k, m, start) == 0
+        assert torch.equal(got[:, :, start:], want[:, :, start:]), start
+
+
+@pytest.mark.parametrize("k,m", [(31, 11), (63, 21), (45, 17), (21, 23)])
+@pytest.mark.parametrize("run_delta", [None, -1, 0, 1])
+def test_positions_runs_cross_rows(lib, k, m, run_delta):
+    """The kernel's runs of P positions over rows of length 1 (None),
+    P - 1, P and P + 1 (a run enters the next row and starts from zero
+    there; tiles cut rows), and over the strided init rows."""
+    g = _geometry(lib)
+    P = g["pos_run"]
+    L = 1 if run_delta is None else P + run_delta
+    R = 3 * g["pos_threads"] * P // L // 2 + 5  # a tile and a half
+    codes = _codes((R, L + 40), seed=k + L)
+    rows = codes[:, :L].contiguous()
+    _assert_positions_equal(_host_positions(lib, rows, k, m),
+                            t_min.position_pipeline_torch(rows, k, m))
+    init = codes[:, :L]
+    _assert_positions_equal(_host_positions(lib, init, k, m),
+                            t_min.position_pipeline_torch(init, k, m))
+
+
+def _row_lanes(k, m, b, L, seed):
+    """rows_from_emissions' inputs over lanes of L positions: one valid
+    throughout (long runs to split), one from L // 3 with a hole, one
+    all invalid, one valid at its last position only, one whose valid
+    span ends early, one with random holes."""
+    B = 6
+    rng = np.random.default_rng(seed)
+    em, _ = t_enum.enumerate_batch(
+        _codes((B, k - 1 + L), seed=seed), torch.ones(B, dtype=torch.bool),
+        torch.full((B,), k - 1 + L), t_enum.zero_carry(B), k, m, b)
+    pos = torch.arange(L)
+    vs = torch.tensor([0, L // 3, L, L - 1, 0, 0])
+    ve = torch.tensor([L, L, L, L, max(1, L // 2), L])
+    valid = em.valid & (pos >= vs[:, None]) & (pos < ve[:, None])
+    valid[1, L // 2: L // 2 + 3] = False
+    valid[5] &= torch.from_numpy(rng.random(L) < 0.9)
+    first_valid = pos == vs[:, None]
+    return (em.key, em.bucket, em.mini_idx, em.use_rc, valid, first_valid,
+            em.boundary)
+
+
+@pytest.mark.parametrize("k,m,b", [(31, 11, 8), (63, 21, 14)])
+@pytest.mark.parametrize("L", [1, 255, 256, 257, 600, 1100])
+@pytest.mark.parametrize("cap", ["4", "L"])
+def test_row_scans_match_plain_version(lib, k, m, b, L, cap):
+    """The kernel's order (runs of kRowRun, Kogge-Stone warp scans, the
+    warps' totals, tiles walked forward then backward past one tile) and
+    the segmented u32 suffix sum of the row words give the plain
+    version's int64 suffix differences, slots and overflow exactly: split
+    runs (2(k - m) + 1 > s_max at both), holes, overflowing lanes
+    (row_cap 4), all-invalid lanes, row_cap = L."""
+    row_cap = 4 if cap == "4" else L
+    args = _row_lanes(k, m, b, L, seed=L + k)
+    want = sklstore.rows_from_emissions_torch(*args, k, m, b, row_cap)
+    got = _host_rows(lib, args, k, m, b, row_cap)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and torch.equal(g, w), i
+    if L >= 256 and row_cap == 4:
+        assert bool(want[3].any())
+
+
+def test_row_tile_matches_wrapper(lib):
+    """kernels.ROW_TILE, the tile past which the wrapper hands skl_rows a
+    scratch, is the header's."""
+    from brisk_tpu_torch import kernels
+    g = _geometry(lib)
+    assert kernels.ROW_TILE == g["row_run"] * g["row_threads"]
