@@ -32,8 +32,7 @@ rows (REKEY_ROWS), timed the same way.
 `--against DIR` (repeatable) also builds each of the five kernels whose
 source another checkout holds (DIR is its `brisk_tpu_torch/csrc`, e.g. a
 parent commit unpacked with `git archive` into a gitignored directory;
-the C entries must be this tree's; a chunked skl_rows gets its older
-scratch) and times them in turns with this
+the C entries must be this tree's) and times them in turns with this
 tree's (other, this, this, other), by device time: `against` lists each
 DIR's two times and its `max_abs_err` to the plain version,
 `device_ms_turns` this tree's two.
@@ -156,53 +155,20 @@ def has_source(csrc: str, name: str) -> bool:
     return os.path.exists(os.path.join(csrc, name + ".cu"))
 
 
-def chunked_skl_rows(key, bucket, mini_idx, use_rc, valid, first_valid,
-                     boundary, k, m, b, row_cap, s_max, nw, split):
-    """kernels.skl_rows for a skl_rows.cu of the chunked design (one from
-    before kRowTile), whose C entry takes a (B, ceil(L / 256), 3) int64
-    scratch at every L: the same launch with that scratch.
-
-    Only the tree before the tiled skl_rows has that C entry, so this
-    shim serves only to time this tree against that one (the paired
-    skl_rows times in PERF.md). No later parent needs it: the next
-    change to this module removes it, with the kRowTile test in
-    kernels_from."""
-    B, L = bucket.shape
-    dev = bucket.device
-    out_w = min(L, row_cap)
-    out = torch.empty((2 + nw, B, out_w), dtype=torch.int64, device=dev)
-    overflow = torch.empty(B, dtype=torch.bool, device=dev)
-    carry = torch.empty((B, -(-L // 256), 3), dtype=torch.int64,
-                        device=dev)
-    kernels._launch("skl_rows", kernels._entry("skl_rows"), (
-        kernels._ptrs(tuple(key) + (bucket, mini_idx, use_rc, valid,
-                                    first_valid, boundary)),
-        out.data_ptr(), overflow.data_ptr(), carry.data_ptr(), B, L,
-        row_cap, out_w, k, m, b, s_max, int(split), nw), dev)
-    return out[0], out[1], out[2:], overflow
-
-
 @contextlib.contextmanager
 def kernels_from(csrc: str):
     """Inside the block, the wrappers of the kernels of NAMES whose
     sources `csrc` holds (another checkout's, with the same C entries)
-    launch the kernels built from them; a chunked skl_rows source gets
-    its scratch (chunked_skl_rows)."""
+    launch the kernels built from them."""
     saved = {name: kernels._SOURCES[name] for name in NAMES
              if has_source(csrc, name)}
     for name in saved:
         kernels._SOURCES[name] = saved[name]._replace(
             path=os.path.join(os.path.abspath(csrc), name + ".cu"))
-    wrapper = kernels.skl_rows
-    if "skl_rows" in saved:
-        with open(os.path.join(csrc, "flush_math.cuh")) as fh:
-            if "kRowTile" not in fh.read():
-                kernels.skl_rows = chunked_skl_rows
     try:
         yield
     finally:
         kernels._SOURCES.update(saved)
-        kernels.skl_rows = wrapper
 
 
 def max_abs_err(got, want) -> int:

@@ -472,6 +472,10 @@ constexpr auto kLaunch =
 
 }  // namespace
 
+// The positions a block takes at once: a lane longer than this needs the
+// scratch `carry` below (its wrapper sizes it from here).
+extern "C" int brisk_skl_rows_tile() { return kTile; }
+
 // in: the 10 input pointers in RowArgs order (the 4 key limbs, bucket,
 // mini_idx, use_rc, valid, first_valid, boundary), each (B, L); out:
 // 2 + nw planes of B * out_w int64 (bucket, meta, the nw words);

@@ -848,7 +848,9 @@ def _query_join_partials(ikeys: torch.Tensor, icnt: torch.Tensor,
     (tag 0) sort before query slots (tag 1) of the same key and a
     segmented cumsum of index counts hands each query slot its key's
     total. Returns (256,) int64 partial sums of (count mod 256) per live
-    query slot."""
+    query slot. The sort is torch's (_u32.lexsort); the scan after it is
+    one CUDA kernel on the card (kernels.join_scan, csrc/run_scan.cu),
+    its plain version _join_scan_torch on the CPU."""
     W = ikeys.shape[0]
 
     def shifted(keys, tagbit):
@@ -865,9 +867,23 @@ def _query_join_partials(ikeys: torch.Tensor, icnt: torch.Tensor,
     perm = lexsort(keys)
     out = torch.stack([x[perm] for x in keys])
     s_pay = payload[perm]
+    if out.device.type != "cuda":
+        return _join_scan_torch(out, s_pay)
+    return kernels.join_scan(out, s_pay)
+
+
+def _join_scan_torch(out: torch.Tensor, s_pay: torch.Tensor
+                     ) -> torch.Tensor:
+    """The join's scan after its sort (plain version of kernels.join_scan,
+    csrc/run_scan.cu): out (W, S) int64 sorted u32 words, the side tag in
+    bit 0 of out[W - 1]; s_pay (S,) int64. Each query slot with liveness
+    1 takes its key's index count so far, mod 256; returns (256,) int64
+    partial sums, partial p over the slots [p * L, (p + 1) * L), L =
+    ceil(S / 256)."""
+    W = out.shape[0]
     is_q = (out[W - 1] & 1) == 1
-    out[W - 1] &= ~1  # ignore the tag bit when detecting key runs
-    first = _first_of_runs(out)
+    # ignore the tag bit when detecting key runs
+    first = _first_of_runs(torch.cat([out[:W - 1], (out[W - 1] & ~1)[None]]))
     contrib = torch.where(is_q, 0, s_pay)
     c = torch.cumsum(contrib, 0)
     # csum at each run's start, propagated forward (csum is monotone)

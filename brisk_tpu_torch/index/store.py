@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from brisk_tpu_torch import kernels
 from brisk_tpu_torch._u32 import INVALID, M32, lexsort, to_i32, to_u32
 
 
@@ -191,15 +192,34 @@ def compact_fast(state: IndexState) -> IndexState:
     return IndexState(keys, totals, n_valid, n_valid)
 
 
+def _run_totals_torch(data: torch.Tensor, first: torch.Tensor):
+    """Each run's total and each column's run index, over columns in
+    sorted order (plain version of kernels.run_totals, csrc/run_scan.cu):
+    data (N,) int64, first (N,) bool run starts. Returns seg_total (N,)
+    int64, the run's sum mod 2^32 at its last column and 0 elsewhere
+    (summed in int64 and masked, so a total past 2^32 keeps its low
+    bits), and seg_id (N,) int64, cumsum(first) - 1."""
+    is_last = torch.ones_like(first)
+    is_last[:-1] = first[1:]
+    csum = torch.cumsum(data, 0)
+    seg_base = torch.cummax(torch.where(first, csum - data, 0), 0).values
+    seg_total = torch.where(is_last, (csum - seg_base) & M32, 0)
+    seg_id = torch.cumsum(first.to(torch.int64), 0) - 1
+    return seg_total, seg_id
+
+
 def compact(state: IndexState) -> IndexState:
     """Global sort + duplicate segment-sum: the whole state becomes one
     sorted, deduplicated run (key columns [0, n_unique), the rest
     INVALID with zero data). Each run's total moves from its LAST column
-    to its FIRST by two stable packing sorts keyed on the run's rank."""
-    keys, data, first, is_last, valid, csum = _sorted_runs(state)
-    seg_base = torch.cummax(torch.where(first, csum - data, 0), 0).values
-    seg_total = torch.where(is_last, (csum - seg_base) & M32, 0)
-    seg_id = torch.cumsum(first.to(torch.int64), 0) - 1
+    to its FIRST by two stable packing sorts keyed on the run's rank. The
+    run totals are one kernel on a CUDA tensor (kernels.run_totals), the
+    plain version on the CPU."""
+    keys, data, first, is_last, valid, _ = _sorted_runs(state)
+    if data.device.type == "cuda":
+        seg_total, seg_id = kernels.run_totals(data, first)
+    else:
+        seg_total, seg_id = _run_totals_torch(data, first)
     big = 0x7FFFFFFF
     keys_u = keys[:, torch.sort(torch.where(first, seg_id, big),
                                 stable=True).indices]

@@ -41,9 +41,18 @@ kernel sits next to its caller (the CPU path and the reference).
                          brisk_tpu/index/sklstore.py
                          rows_from_emissions; plain version
                          index.sklstore.rows_from_emissions_torch
+    join_scan            csrc/run_scan.cu      replaces the scan after the
+                         sort of the XLA program brisk_tpu/index/
+                         sklstore.py _query_join_partials; plain version
+                         index.sklstore._join_scan_torch
+    run_totals           csrc/run_scan.cu      replaces the run totals of
+                         the XLA program brisk_tpu/index/store.py
+                         compact; plain version
+                         index.store._run_totals_torch
 
-The last five share their arithmetic in `csrc/enum_math.cuh` and
-`csrc/flush_math.cuh`.
+The enumerator's five share their arithmetic in `csrc/enum_math.cuh` and
+`csrc/flush_math.cuh`; the last two are two C entries of one library,
+their arithmetic in `csrc/run_scan.cuh`.
 """
 
 import concurrent.futures
@@ -64,7 +73,7 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 class _Source(NamedTuple):
     path: str
-    entry: str          # the C entry point
+    entry: str          # the C entry point (a library may have several)
     argtypes: list
     per_s_max: bool     # one library per s_max (-DBRISK_S_MAX)
 
@@ -88,6 +97,17 @@ _SOURCES = {
     "skl_rows": _Source(os.path.join(_DIR, "csrc", "skl_rows.cu"),
                         "brisk_skl_rows",
                         [_PTR] * 4 + [_INT] * 10 + [_PTR], False),
+    # the positions a skl_rows block takes at once (brisk::kRowTile)
+    "skl_rows_tile": _Source(os.path.join(_DIR, "csrc", "skl_rows.cu"),
+                             "brisk_skl_rows_tile", [], False),
+    "join_scan": _Source(os.path.join(_DIR, "csrc", "run_scan.cu"),
+                         "brisk_join_scan",
+                         [_PTR] * 4 + [ctypes.c_longlong] + [_INT] * 2
+                         + [_PTR], False),
+    "run_totals": _Source(os.path.join(_DIR, "csrc", "run_scan.cu"),
+                          "brisk_run_totals",
+                          [_PTR] * 5 + [ctypes.c_longlong, _INT, _PTR],
+                          False),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -95,14 +115,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAYOUTS = {"jmajor": 0, "rowmajor": 1}
 LAUNCHES = {"expand_span_jmajor": 0, "expand_span_rowmajor": 0,
             "state_scan": 0, "rescan": 0, "positions": 0, "emit": 0,
-            "skl_rows": 0}
-# positions a skl_rows block takes at once (brisk::kRowTile in
-# csrc/flush_math.cuh): a longer lane needs a scratch of its tiles' entry
-# values
-ROW_TILE = 512
+            "skl_rows": 0, "join_scan": 0, "run_totals": 0}
 # dtypes of a MinimizerState's 7 fields (rev is bool)
 _STATE_DTYPES = (torch.int64,) * 3 + (torch.bool,) + (torch.int64,) * 3
 _libs = {}  # (source path, s_max or None) -> loaded library
+_fns = {}   # (source path, entry, s_max or None) -> its C entry point
 BUILD_LOG = {}  # library name -> nvcc output (ptxas register report)
 
 
@@ -115,10 +132,10 @@ def _nvcc() -> str:
 
 
 def _build_so(name: str, s_max) -> str:
-    """Compile one CUDA source (at one s_max, for the span expansion) into
-    `_build/lib<name>[_s<s_max>]_<hash>.so` (once per content of the
-    source and of the headers beside it, and flags); returns the
-    library's path."""
+    """Compile kernel `name`'s CUDA source (at one s_max, for the span
+    expansion) into `_build/lib<source>[_s<s_max>]_<hash>.so` (once per
+    content of the source and of the headers beside it, and flags);
+    returns the library's path."""
     src = _SOURCES[name].path
     flags = NVCC_FLAGS + ([f"-DBRISK_S_MAX={s_max}"] if s_max else [])
     sha = hashlib.sha256(" ".join(flags).encode())
@@ -128,7 +145,8 @@ def _build_so(name: str, s_max) -> str:
         with open(path, "rb") as fh:
             sha.update(fh.read())
     digest = sha.hexdigest()
-    tag = f"{name}_s{s_max}" if s_max else name
+    base = os.path.splitext(os.path.basename(src))[0]
+    tag = f"{base}_s{s_max}" if s_max else base
     so = os.path.join(_BUILD_DIR, f"lib{tag}_{digest[:16]}.so")
     if not os.path.exists(so):
         os.makedirs(_BUILD_DIR, exist_ok=True)
@@ -143,16 +161,18 @@ def _build_so(name: str, s_max) -> str:
 
 
 def _entry(name: str, s_max=None):
-    """Build (once per source content) and load one kernel library;
+    """Build (once per source content) and load kernel `name`'s library;
     returns its C entry point with its argument types set."""
     src = _SOURCES[name]
-    if (src.path, s_max) not in _libs:
-        lib = ctypes.CDLL(_build_so(name, s_max))
-        fn = getattr(lib, src.entry)
+    key = (src.path, src.entry, s_max)
+    if key not in _fns:
+        if (src.path, s_max) not in _libs:
+            _libs[src.path, s_max] = ctypes.CDLL(_build_so(name, s_max))
+        fn = getattr(_libs[src.path, s_max], src.entry)
         fn.argtypes = src.argtypes
         fn.restype = ctypes.c_int
-        _libs[src.path, s_max] = lib
-    return getattr(_libs[src.path, s_max], src.entry)
+        _fns[key] = fn
+    return _fns[key]
 
 
 def build(s_maxes=(8,)) -> dict:
@@ -160,10 +180,12 @@ def build(s_maxes=(8,)) -> dict:
     s_max, the others once), one nvcc per library, all started together;
     returns the build logs. s_max is 8 at every configuration with
     m <= k - 4."""
-    jobs = [(name, s) for name, src in _SOURCES.items()
-            for s in (s_maxes if src.per_s_max else (None,))]
+    jobs = {}
+    for name, src in _SOURCES.items():
+        for s in (s_maxes if src.per_s_max else (None,)):
+            jobs.setdefault((src.path, s), (name, s))
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        list(pool.map(lambda job: _entry(*job), jobs))
+        list(pool.map(lambda job: _entry(*job), jobs.values()))
     return dict(BUILD_LOG)
 
 
@@ -408,9 +430,10 @@ def skl_rows(key: torch.Tensor, bucket: torch.Tensor,
     for name, t in (("use_rc", use_rc), ("valid", valid),
                     ("first_valid", first_valid), ("boundary", boundary)):
         _check(t, name, (B, L), dev, torch.bool)
-    if L >= 2**31 - ROW_TILE:
+    tile = _entry("skl_rows_tile")()
+    if L >= 2**31 - tile:
         raise ValueError(f"unsupported shapes: L={L} (positions and ranks "
-                         f"are int32: L < 2**31 - {ROW_TILE})")
+                         f"are int32: L < 2**31 - {tile})")
     out_w = min(L, row_cap)
     out = torch.empty((2 + nw, B, out_w), dtype=torch.int64, device=dev)
     if L == 0:  # no position, no row start
@@ -418,8 +441,8 @@ def skl_rows(key: torch.Tensor, bucket: torch.Tensor,
                 torch.zeros(B, dtype=torch.bool, device=dev))
     overflow = torch.empty(B, dtype=torch.bool, device=dev)
     # a lane longer than one tile keeps each tile's entry values here
-    carry = (torch.empty((B, -(-L // ROW_TILE), 3), dtype=torch.int32,
-                         device=dev) if L > ROW_TILE else None)
+    carry = (torch.empty((B, -(-L // tile), 3), dtype=torch.int32,
+                         device=dev) if L > tile else None)
     if B > 0:
         _launch("skl_rows", _entry("skl_rows"), (
             _ptrs(tuple(key) + (bucket, mini_idx, use_rc, valid,
@@ -428,3 +451,65 @@ def skl_rows(key: torch.Tensor, bucket: torch.Tensor,
             None if carry is None else carry.data_ptr(), B, L, row_cap,
             out_w, k, m, b, s_max, int(split), nw), dev)
     return out[0], out[1], out[2:], overflow
+
+
+def _scan_tile(n: int) -> int:
+    """Slots a warp of run_scan.cu takes in one tile: a power of two from
+    32 to 2048, the smallest that keeps the tiles (one a warp) at 4,096 or
+    fewer, so that small scans still spread over the card."""
+    tile = 32
+    while tile < 2048 and n > tile * 4096:
+        tile *= 2
+    return tile
+
+
+def join_scan(words: torch.Tensor, pay: torch.Tensor) -> torch.Tensor:
+    """CUDA run scan of the query join (the contract of
+    index.sklstore._join_scan_torch): words (W, S) int64, the join's
+    sorted u32 key words with the side tag in bit 0 of words[W - 1]; pay
+    (S,) int64, index counts on index slots and liveness on query slots.
+    Returns the (256,) int64 partial sums: partial p sums, over the query
+    slots of [p * L, (p + 1) * L) with liveness 1 (L = ceil(S / 256)),
+    their key's index count mod 256."""
+    if words.dim() != 2 or not 1 <= words.shape[0] <= 6:
+        raise ValueError(f"unsupported shapes: words {tuple(words.shape)}")
+    W, S = words.shape
+    dev = words.device
+    _check(words, "words", (W, S), dev, torch.int64)
+    _check(pay, "pay", (S,), dev, torch.int64)
+    if S >= 2**31:
+        raise ValueError(f"unsupported shapes: S={S} (S < 2**31)")
+    if S == 0:
+        return torch.zeros(256, dtype=torch.int64, device=dev)
+    tile = _scan_tile(S)
+    parts = torch.empty(256, dtype=torch.int64, device=dev)
+    scratch = torch.empty((2, -(-S // tile)), dtype=torch.int64, device=dev)
+    _launch("join_scan", _entry("join_scan"), (
+        words.data_ptr(), pay.data_ptr(), parts.data_ptr(),
+        scratch.data_ptr(), S, W, tile), dev)
+    return parts
+
+
+def run_totals(data: torch.Tensor, first: torch.Tensor):
+    """CUDA run totals of compact (the contract of
+    index.store._run_totals_torch): data (N,) int64 counts in sorted
+    order, first (N,) bool run starts. Returns seg_total (N,) int64, each
+    run's sum mod 2^32 at its last column and 0 elsewhere, and seg_id (N,)
+    int64, each column's run index (the run starts up to it, less one)."""
+    if data.dim() != 1:
+        raise ValueError(f"unsupported shapes: data {tuple(data.shape)}")
+    N = data.shape[0]
+    dev = data.device
+    _check(data, "data", (N,), dev, torch.int64)
+    _check(first, "first", (N,), dev, torch.bool)
+    if N >= 2**31:
+        raise ValueError(f"unsupported shapes: N={N} (N < 2**31)")
+    out = torch.empty((2, N), dtype=torch.int64, device=dev)
+    if N > 0:
+        tile = _scan_tile(N)
+        scratch = torch.empty((2, -(-N // tile)), dtype=torch.int64,
+                              device=dev)
+        _launch("run_totals", _entry("run_totals"), (
+            first.data_ptr(), data.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), scratch.data_ptr(), N, tile), dev)
+    return out[0], out[1]

@@ -9,7 +9,9 @@ On N = 2^25 random u32 columns (int32 bit patterns, seed 0):
     (num_keys, payload) pair the reference lists, the payload columns
     gathered by the permutation;
   - the dedup scans: a u32 cumsum (in int64, masked to 32 bits as the
-    port does) and a cummax of each run's base;
+    port does) and a cummax of each run's base; beside them, on a card,
+    the same runs' totals and ranks by the port's kernel
+    (kernels.run_totals, csrc/run_scan.cu: `run_totals_ms`);
   - a random gather of 4 columns;
   - the row-batched sorts, 1024 x 32K and 128 x 256K, 3 keys + 1
     payload along each row.
@@ -27,7 +29,7 @@ import sys
 
 import torch
 
-from brisk_tpu_torch import bench
+from brisk_tpu_torch import bench, kernels
 
 # (num_keys, payload columns), as scripts/profile_sort.py lists them
 SORTS = ((3, 1), (1, 1), (1, 3), (2, 2), (6, 1), (2, 1), (1, 0))
@@ -74,7 +76,14 @@ def profile(dev: torch.device, n: int = 1 << 25,
                             0).values
         return [digest(base) + digest(csum)]
 
-    out.append(timed(dev, "dedup scans (cumsum+cummax)", scans, n))
+    row = timed(dev, "dedup scans (cumsum+cummax)", scans, n)
+    row["run_totals_ms"] = None
+    if dev.type == "cuda":
+        val = cols[1].to(torch.int64) & M32
+        first = cols[0] != torch.roll(cols[0], 1)
+        row["run_totals_ms"] = 1e3 * bench.median_s(
+            dev, lambda: [digest(x) for x in kernels.run_totals(val, first)])
+    out.append(row)
 
     def gather4():
         idx = (cols[0].to(torch.int64) & M32) >> 7

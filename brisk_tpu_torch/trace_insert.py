@@ -2,6 +2,7 @@
 (the counterpart of the repo's scripts/trace_insert.py):
 
     python -m brisk_tpu_torch.trace_insert [--device cuda|cpu] [--out DIR]
+        [--deploy-bases N [--data-dir DIR]]
 
 At the bench geometry (k=31 m=11 b=8, batch 2048, window 512, stack 8)
 on an 8 Mb random record (seed 7): one pipeline.insert_flat_sklnative
@@ -24,9 +25,21 @@ to brisk_trace in the temp directory) and prints one JSON line per span:
 the traced and untraced wall ms, CUDA kernel launches, device-busy ms
 (the union of the kernel, memcpy and memset intervals of the session),
 device_idle_share = 1 - busy / traced wall, the 10 kernels with the
-most device time, and the device events whose timestamps fall outside
-the span (0 when the clocks agree). With `--device cpu` the device
-fields are null and the span's CPU op count is given. On a card, a
+most device time, the port's hand-written kernels that ran (launches and
+device ms of each, by HAND_KERNELS; the query join's scan is join_scan),
+and the device events whose timestamps fall outside the span (0 when the
+clocks agree). With `--device cpu` the device
+fields are null and the span's CPU op count is given.
+
+`--deploy-bases N` also traces the user's query at a deployment's size
+(`query_file`, trace_query_file): a Brisk at the same geometry built from
+the N-base synthetic input of bench.synth_path (10 kb records, seed
+1234; chip_smoke.py's deployment is 50,000,000 bases), then
+Brisk.query_file of that input against it (the query's enumeration into
+a shadow arena, both expansions and the join, whose scan covers the
+index expansion and a query chunk of up to 2^26 slots), warmed, timed
+untraced, then traced in a session of its own: one more JSON line, span
+`query_file`. On a card, a
 span whose session recorded no device activity is traced again (the
 whole pass, up to 3 attempts, counted in `attempts`); if it never does,
 the run raises instead of passing a CPU trace off as a device trace.
@@ -47,6 +60,13 @@ from brisk_tpu_torch import bench
 from brisk_tpu_torch.bench import sync
 
 SPANS = ("flush", "finalize", "query_join")
+# the port's hand-written kernels by a part of their device functions'
+# names (csrc/*.cu): kernels.LAUNCHES names, and the span expansion
+HAND_KERNELS = {"expand_span": "expand_span_kernel",
+                "positions": "positions_kernel", "rescan": "rescan_kernel",
+                "state_scan": "state_scan_kernel", "emit": "emit_kernel",
+                "skl_rows": "skl_rows_kernel", "join_scan": "join_scan_",
+                "run_totals": "run_totals_"}
 
 
 def _write_query(path: str, codes: np.ndarray, read_len: int = 10_000):
@@ -134,7 +154,8 @@ def span_summary(events, dev: torch.device, name: str,
     rec = dict(span=name, traced_wall_ms=wall_ms)
     if dev.type != "cuda":
         rec.update(launches=None, busy_ms=None, device_idle_share=None,
-                   top_kernels=None, outside_span=None, cpu_ops=sum(
+                   top_kernels=None, hand_kernels=None, outside_span=None,
+                   cpu_ops=sum(
                        1 for e in cpu if e is not sp
                        and lo <= e.time_range.start
                        and e.time_range.end <= hi))
@@ -160,11 +181,24 @@ def span_summary(events, dev: torch.device, name: str,
                             for n, (c, t) in sorted(
                                 by_name.items(),
                                 key=lambda kv: -kv[1][1])[:top]],
+               hand_kernels=_hand_kernels(by_name),
                outside_span=sum(1 for e in device
                                 if e.time_range.start < lo
                                 or e.time_range.end > hi),
                cpu_ops=None)
     return rec
+
+
+def _hand_kernels(by_name: dict) -> dict:
+    """{kernel: dict(launches, ms)} of the HAND_KERNELS among a span's
+    kernels (by_name: device function name -> (launches, ms))."""
+    out = {}
+    for kernel, part in HAND_KERNELS.items():
+        hits = [v for n, v in by_name.items() if part in n]
+        if hits:
+            out[kernel] = dict(launches=sum(c for c, _ in hits),
+                               ms=sum(t for _, t in hits))
+    return out
 
 
 def _traced_pass(run, activities, out_dir: str):
@@ -239,18 +273,68 @@ def trace(dev: torch.device, out_dir: str, rec_bases: int = 8_000_000,
     return rows
 
 
+def trace_query_file(dev: torch.device, out_dir: str, n_bases: int,
+                     data_dir: str, k: int = 31, m: int = 11, b: int = 8,
+                     batch: int = 2048, window: int = 512,
+                     stack: int = 8) -> dict:
+    """Brisk.query_file of the n_bases synthetic deployment against its own
+    index, traced (see the module note): the span summary of
+    `query_file`, with its wall and untraced wall ms and the query
+    total; writes DIR/trace_query_file.json."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from brisk_tpu_torch.api import Brisk
+    from brisk_tpu_torch.params import Parameters
+    path = bench.synth_path(data_dir, n_bases)
+    idx = Brisk(Parameters(k, m, b), batch=batch, window=window,
+                stack=stack, device=dev)
+    idx.insert_file(path)
+    idx.finalize()
+    total = idx.query_file(path)  # warm-up
+    sync(dev)
+    t = time.perf_counter()
+    untraced = idx.query_file(path)
+    sync(dev)
+    untraced_ms = 1e3 * (time.perf_counter() - t)
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        with record_function("query_file"):
+            t = time.perf_counter()
+            traced = idx.query_file(path)
+            sync(dev)
+            wall_ms = 1e3 * (time.perf_counter() - t)
+    if not total == untraced == traced:
+        raise RuntimeError("the traced query_file disagrees with the "
+                           "untraced one")
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "trace_query_file.json"))
+    return dict(span_summary(prof.events(), dev, "query_file"),
+                wall_ms=wall_ms, untraced_wall_ms=untraced_ms,
+                n_bases=n_bases, query_total=traced)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="torch.profiler trace of flush, finalize and query join")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(),
                                                   "brisk_trace"))
+    ap.add_argument("--deploy-bases", type=int, default=0,
+                    help="also trace query_file at a deployment of this "
+                         "many bases (0: no)")
+    ap.add_argument("--data-dir", default=tempfile.gettempdir(),
+                    help="where the deployment's input is written once")
     a = ap.parse_args(argv)
     dev = bench.device_of(a.device)
     info = bench.card_info(dev)
     print(f"{info['device_name']}, {info['power_limit_w']}", flush=True)
     for row in trace(dev, a.out):
         print(json.dumps(row), flush=True)
+    if a.deploy_bases:
+        print(json.dumps(trace_query_file(dev, a.out, a.deploy_bases,
+                                          a.data_dir)), flush=True)
     print(f"traces written to {os.path.join(a.out, 'trace_<span>.json')}",
           flush=True)
     return 0

@@ -24,7 +24,13 @@ is non-zero and no final `ok` line is printed):
    pipeline timed there too; the rows with ragged valid spans and
    overflowing lanes) and at the shapes of the insert's batch (bench
    geometry) and the k=63 streaming batch, with their times, plain
-   versions' times and bounds (brisk_tpu_torch.bench_enumerate).
+   versions' times and bounds (brisk_tpu_torch.bench_enumerate). Then
+   the run scan's two kernels (csrc/run_scan.cu), the query join's scan
+   (join_scan) and compact's run totals (run_totals), at ragged shapes
+   (one slot, groups and tiles cut short, runs longer than a tile) and,
+   timed beside their plain versions, the library call pair cumsum +
+   cummax and their bounds, at the query joins' and the rekey
+   compaction's shapes (brisk_tpu_torch.bench_run_scan).
 3. fixture parity on the card: counts_dict() equals the pure-Python
    oracle (pyref.count_fasta) on data/test.fa, data/debug_test.fa and a
    fixture that exercises the exact repair and overflow paths.
@@ -79,8 +85,11 @@ is non-zero and no final `ok` line is printed):
 Each main-path phase zeroes the kernel launch counters before it runs
 and reads them after, and fails unless it launched every enumerator
 kernel (the payload index builds no super-k-mer rows, so its phase
-launches skl_rows none); comparisons with the plain versions run
-outside those windows.
+launches skl_rows none); the deployment's and the sharded query_file
+and the k=63 query fail unless they launched join_scan, the k=63
+reallocate unless it launched run_totals (each call's slots and device
+time are printed); comparisons with the plain versions run outside those
+windows.
 The second-to-last line is the kernel report (JSON), the last line
 `{"ok": true, "device": {...}}`. Needs one CUDA card; there is no CPU
 fallback.
@@ -163,6 +172,18 @@ ENUM_ROWS = (("init-rows-k31", K - 1, M, 4096, K - 1),
              ("init-rows-k63", 62, 21, 4096, 62),
              ("rekey-k63-m23", 63, 23, 65536, 63))  # timed for positions
 ENUM_KERNELS = ("positions", "rescan", "state_scan", "emit", "skl_rows")
+# the run scan's kernels (csrc/run_scan.cu) and their ragged shapes,
+# untimed: (name, kernel, slots, key words W, longest run): one slot, a
+# group of 32 cut short, tiles of 32 to 2,048 slots cut short, runs
+# longer than a tile (tiles in which no run starts)
+RUN_SCAN_KERNELS = ("join_scan", "run_totals")
+RUN_SCAN_RAGGED = tuple(
+    (f"ragged-{kernel}-{n}-{W}-{max_run}", kernel, n, W, max_run)
+    for kernel, W in (("join_scan", 3), ("join_scan", 6),
+                      ("run_totals", 1))
+    for n, max_run in ((1, 3), (31, 3), (33, 40), (4097, 300),
+                       ((1 << 17) + 1, 3), ((1 << 20) + 3, 5000),
+                       ((1 << 23) + 17, 9000)))
 
 
 def check(cond, msg: str) -> None:
@@ -192,8 +213,42 @@ def kernel_launches() -> dict:
     each enumerator kernel."""
     from brisk_tpu_torch import kernels
     n = {layout: launches(layout) for layout in ("jmajor", "rowmajor")}
-    n.update({name: kernels.LAUNCHES[name] for name in ENUM_KERNELS})
+    n.update({name: kernels.LAUNCHES[name]
+              for name in ENUM_KERNELS + RUN_SCAN_KERNELS})
     return n
+
+
+@contextlib.contextmanager
+def scan_calls():
+    """Each run-scan kernel call inside the block, as the yielded list of
+    (kernel, slots, device ms): CUDA events on the current stream around
+    the wrapper (read once the block has ended and synchronized)."""
+    import torch
+    from brisk_tpu_torch import kernels
+    events, calls = [], []
+    saved = {name: getattr(kernels, name) for name in RUN_SCAN_KERNELS}
+
+    def timed(name):
+        def call(*args):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out = saved[name](*args)
+            t1.record()
+            events.append((name, args[0].shape[-1], t0, t1))
+            return out
+        return call
+
+    for name in saved:
+        setattr(kernels, name, timed(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(kernels, name, fn)
+        torch.cuda.synchronize()
+        calls.extend((name, n, t0.elapsed_time(t1))
+                     for name, n, t0, t1 in events)
 
 
 def check_enumerated(n: dict, phase: str, rows: bool = True) -> None:
@@ -316,9 +371,20 @@ def phase_kernels(dev) -> dict:
     timed by bench_enumerate.measure; the position pipeline and the
     rescan alone over ENUM_ROWS (the position pipeline timed at the rekey
     rows).
-    Each enumerator kernel's worst difference is kept by name."""
+    Each enumerator kernel's worst difference is kept by name. Then the
+    run scan's two kernels against theirs at RUN_SCAN_RAGGED and, timed,
+    at bench_run_scan.SHAPES."""
     import torch
-    from brisk_tpu_torch import bench_enumerate, bench_expand
+    from brisk_tpu_torch import bench_enumerate, bench_expand, bench_run_scan
+    scan = {"max_abs_err": dict.fromkeys(RUN_SCAN_KERNELS, 0), "rows": []}
+    for shape in RUN_SCAN_RAGGED + bench_run_scan.SHAPES:
+        timed = shape in bench_run_scan.SHAPES
+        r = bench_run_scan.measure(*shape, dev, timed=timed)
+        scan["max_abs_err"][r["kernel"]] = max(
+            scan["max_abs_err"][r["kernel"]], r["max_abs_err"])
+        say("kernel", **{key: v for key, v in r.items() if key != "bytes"})
+        if timed:
+            scan["rows"].append(r)
     enum = {"max_abs_err": dict.fromkeys(ENUM_KERNELS, 0), "rows": []}
     errs = enum["max_abs_err"]
     for geo in ENUM_RAGGED + bench_enumerate.GEOMETRIES:
@@ -365,7 +431,7 @@ def phase_kernels(dev) -> dict:
             "share_of_bound", "fill_ms", "plain_ms")},
             old_path_ms=t.get("old_path_ms"))
         shapes.append(t)
-    return dict(max_abs_err=worst, shapes=shapes, enum=enum)
+    return dict(max_abs_err=worst, shapes=shapes, enum=enum, scan=scan)
 
 
 def phase_fixtures(dev, tmp: str) -> None:
@@ -495,16 +561,20 @@ def phase_deployment(dev, tmp: str) -> dict:
     check(hits >= 0.95 * len(sample), f"only {hits} of {len(sample)} found")
 
     rm0 = launches("rowmajor")
-    t = time.perf_counter()
-    total = idx.query_file(path)
-    sync(dev)
-    query_s = time.perf_counter() - t
+    with scan_calls() as joins:
+        t = time.perf_counter()
+        total = idx.query_file(path)
+        sync(dev)
+        query_s = time.perf_counter() - t
     # the index side of the join expands row-major, the fresh query
-    # shadow J-major
+    # shadow J-major; the join scans on the card
     check(launches("rowmajor") > rm0,
           "query_file's index side did not run the row-major kernel")
+    check(any(name == "join_scan" for name, _, _ in joins),
+          "query_file's join did not launch join_scan")
     say("deploy-query", query_s=query_s, total=total,
-        total_mod32=total & 0xFFFFFFFF, kmers_per_s=EXPECT_KMERS / query_s)
+        total_mod32=total & 0xFFFFFFFF, kmers_per_s=EXPECT_KMERS / query_s,
+        scan_calls=joins)
     check(total & 0xFFFFFFFF == EXPECT_KMERS,
           f"query_file total {total} != {EXPECT_KMERS}")
     n = kernel_launches()
@@ -515,7 +585,7 @@ def phase_deployment(dev, tmp: str) -> dict:
     # orientation-sensitive counts for the payload phase's point lookups
     direct = idx.get_many(sample[:N_PAYLOAD_GETS])
     return dict(launches=n, idx=idx, path=path, sample=sample, got=got,
-                direct=direct, nb_kmers=st["nb_kmers"])
+                direct=direct, nb_kmers=st["nb_kmers"], scan_calls=joins)
 
 
 def phase_consolidate(dev, dep: dict) -> dict:
@@ -769,14 +839,17 @@ def phase_sharded(dev, dep: dict) -> dict:
 
     sklstore.query_join_keys_total = timed_join
     try:
-        t = time.perf_counter()
-        total = sb.query_file(dep["path"])
-        sync(dev)
-        query_s = time.perf_counter() - t
+        with scan_calls() as scans:
+            t = time.perf_counter()
+            total = sb.query_file(dep["path"])
+            sync(dev)
+            query_s = time.perf_counter() - t
     finally:
         sklstore.query_join_keys_total = join
     check(launches("rowmajor") - rm0 >= sb.n_shards,
           "the sharded query did not expand every shard on the card")
+    check(sum(name == "join_scan" for name, _, _ in scans) >= sb.n_shards,
+          "the sharded query did not launch join_scan on every shard")
     check(total == EXPECT_KMERS,
           f"sharded query_file total {total} != {EXPECT_KMERS}")
     sample = dep["sample"][:N_SHARDED_GETS]
@@ -792,7 +865,7 @@ def phase_sharded(dev, dep: dict) -> dict:
     say("sharded-read", stats_s=stats_s, nb_kmers=st["nb_kmers"],
         index_bytes=st["index_bytes"], bytes_per_kmer=st["bytes_per_kmer"],
         query_s=query_s, query_join_s=joins["s"], query_total=total,
-        gets=len(sample), get_s=get_s,
+        scan_calls=scans, gets=len(sample), get_s=get_s,
         found=sum(c is not None for c in got), peak_gib=peak_gib(dev),
         launches=n)
     # the kernel at the span one shard's finalize handed it
@@ -806,7 +879,7 @@ def phase_sharded(dev, dep: dict) -> dict:
     res = kernel_vs_plain(*span, K, M, B, s_max, timed=True)
     say("kernel", at="sharded-finalize", k=K, R=R, exact=True,
         **{key: v for key, v in res.items() if key != "R"})
-    return dict(launches=n, kernel=res)
+    return dict(launches=n, kernel=res, scan_calls=scans)
 
 
 def phase_sharded_spill(dev, tmp: str) -> None:
@@ -1078,9 +1151,13 @@ def phase_trace(dev, tmp: str) -> dict:
             busy_ms=r["busy_ms"], device_idle_share=r["device_idle_share"],
             launches_as_torch_ops=LOOP_TRACE_LAUNCHES[r["span"]],
             outside_span=r["outside_span"], attempts=r["attempts"],
-            top_kernel=r["top_kernels"][0]["name"][:60])
+            top_kernel=r["top_kernels"][0]["name"][:60],
+            hand_kernels=r["hand_kernels"])
     check(n["jmajor"] > 0 and n["rowmajor"] > 0,
           f"the traced finalize and join did not launch both layouts: {n}")
+    join = rows[list(trace_insert.SPANS).index("query_join")]
+    check("join_scan" in join["hand_kernels"],
+          "the traced query join ran no join_scan kernel")
     check_enumerated(n, "the traced flush")
     return dict(launches=n)
 
@@ -1157,15 +1234,22 @@ def phase_k63_deploy(dev, tmp: str) -> dict:
     back, kk, mm = kff.read_index(out)
     times["kff_read_s"] = time.perf_counter() - t
     check((kk, mm) == (k, m) and back == want, "KFF read-back != counts_dict")
-    t = time.perf_counter()
-    total = idx.query_file(path)
-    sync(dev)
-    times["query_s"] = time.perf_counter() - t
+    with scan_calls() as scans:
+        t = time.perf_counter()
+        total = idx.query_file(path)
+        sync(dev)
+        times["query_s"] = time.perf_counter() - t
     check(total >= idx.n_emitted, f"k=63 query total {total} too small")
-    t = time.perf_counter()
-    idx.reallocate()
-    sync(dev)
-    times["reallocate_s"] = time.perf_counter() - t
+    check(any(name == "join_scan" for name, _, _ in scans),
+          "the k=63 query_file did not launch join_scan")
+    with scan_calls() as rekey:
+        t = time.perf_counter()
+        idx.reallocate()
+        sync(dev)
+        times["reallocate_s"] = time.perf_counter() - t
+    check(any(name == "run_totals" for name, _, _ in rekey),
+          "reallocate's compactions did not launch run_totals")
+    scans += rekey
     p = idx.params
     check((p.k, p.m, p.b) == (63, 23, 15), f"reallocate gave {p}")
     check(idx.counts_dict() == want, "reallocate changed counts_dict")
@@ -1173,13 +1257,14 @@ def phase_k63_deploy(dev, tmp: str) -> dict:
     check_enumerated(n, "the k=63 deployment")
     say("k63-stages", query_total=total, kff_bytes=os.path.getsize(out),
         npz_bytes=os.path.getsize(ckpt), peak_gib=peak_gib(dev),
+        scan_calls=scans,
         **{k_: round(v, 3) for k_, v in times.items()})
     del idx
     s_max = sklstore.skl_dims(k, m, b)[1]
     res = kernel_vs_plain(*span, k, m, b, s_max, timed=True)
     say("kernel", at="k63-deploy", k=k, R=R, exact=True,
         **{key: v for key, v in res.items() if key != "R"})
-    return dict(launches=n, kernel=res)
+    return dict(launches=n, kernel=res, scan_calls=scans)
 
 
 def phase_k63_short(dev, tmp: str) -> dict:
@@ -1338,6 +1423,32 @@ def kernel_report(kern: dict, phases: dict) -> dict:
                 "device_ms",
                 "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                 "share_of_bound", "bytes", "fp64_adds")} for r in rows]})
+    calls = [(phase, name, n, ms) for phase, r in phases.items()
+             for name, n, ms in r.get("scan_calls", ())]
+    for name, source, replaces in (
+            ("join_scan", "brisk_tpu_torch/csrc/run_scan.cu",
+             "brisk_tpu/index/sklstore.py:1431"),
+            ("run_totals", "brisk_tpu_torch/csrc/run_scan.cu",
+             "brisk_tpu/index/store.py:199")):
+        rows = [r for r in kern["scan"]["rows"] if r["kernel"] == name]
+        # the deployment's query join; for run_totals the k=63 rekey
+        first = rows[0]
+        report["kernels"].append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(r["launches"][name] for r in main_path),
+            "launches_by_phase": {phase: r["launches"][name]
+                                  for phase, r in phases.items()},
+            "max_abs_err": kern["scan"]["max_abs_err"][name],
+            "ms": first["kernel_ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
+            "shapes": [{key: r.get(key) for key in (
+                "shape", "n", "W", "kernel_ms", "plain_ms", "library_ms",
+                "bound_ms", "share_of_bound")} for r in rows],
+            "main_path_calls": [
+                dict(phase=phase, n=n, ms=ms)
+                for phase, kname, n, ms in calls if kname == name]})
     for k in report["kernels"]:
         check(k["launches"] > 0 and k["max_abs_err"] == 0,
               f"{k['name']}: {k['launches']} launches on the main path, "
@@ -1384,7 +1495,8 @@ def main() -> int:
         run("fixtures", phase_fixtures, dev, tmp)
         dep = run("deploy", phase_deployment, dev, tmp)
         con = run("consolidate", phase_consolidate, dev, dep)
-        dep_launches = dict(launches=dep["launches"])
+        dep_launches = dict(launches=dep["launches"],
+                            scan_calls=dep["scan_calls"])
         counter = {key: dep[key] for key in ("path", "sample", "direct",
                                              "got", "nb_kmers")}
         del dep

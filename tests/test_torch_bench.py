@@ -197,6 +197,25 @@ def test_trace_spans_on_the_cpu(tmp_path):
         assert (tmp_path / f"trace_{name}.json").stat().st_size > 0
 
 
+def test_trace_query_file_at_a_deployment_on_the_cpu(tmp_path):
+    """The query_file span at a (tiny) deployment: its total equals the
+    port's own untraced query_file on the same input, the span holds CPU
+    ops, and the trace is written."""
+    from brisk_tpu_torch.api import Brisk
+    from brisk_tpu_torch.params import Parameters
+    geo = dict(batch=16, window=64, stack=2)
+    r = trace_insert.trace_query_file(CPU, str(tmp_path), 30_000,
+                                      str(tmp_path), **geo)
+    assert r["span"] == "query_file" and r["n_bases"] == 30_000
+    assert r["cpu_ops"] > 0 and r["untraced_wall_ms"] > 0
+    assert r["launches"] is None and r["hand_kernels"] is None
+    idx = Brisk(Parameters(31, 11, 8), device="cpu", **geo)
+    path = bench.synth_path(str(tmp_path), 30_000)
+    idx.insert_file(path)
+    assert r["query_total"] == idx.query_file(path) > 0
+    assert (tmp_path / "trace_query_file.json").stat().st_size > 0
+
+
 def test_span_summaries_on_device_events():
     """The card-side arithmetic on hand-made events of one span's
     session: launches count the session's kernels (a kernel whose
@@ -231,6 +250,37 @@ def test_span_summaries_on_device_events():
         trace_insert.span_summary(events[:3] + events[6:7], cuda, "flush")
     with pytest.raises(RuntimeError, match="span finalize missing"):
         trace_insert.span_summary(events, cuda, "finalize")
+
+
+def test_span_summary_names_the_hand_kernels():
+    """hand_kernels sums the launches and device time of the port's own
+    kernels by their device functions' names: the join scan's three
+    passes count as join_scan; library kernels count as none."""
+    from torch.autograd import DeviceType
+
+    def ev(name, start, end, dev=DeviceType.CUDA):
+        return types.SimpleNamespace(
+            name=name, device_type=dev,
+            time_range=types.SimpleNamespace(
+                start=start, end=end, elapsed_us=lambda: end - start))
+
+    events = [ev("query_join", 0, 1000, DeviceType.CPU),
+              ev("void cub::DeviceRadixSortOnesweepKernel", 10, 300),
+              ev("void (anonymous namespace)::join_scan_reduce<3>(...)",
+                 300, 350),
+              ev("(anonymous namespace)::join_scan_carries(...)", 350, 360),
+              ev("void (anonymous namespace)::join_scan_apply<3>(...)",
+                 360, 420),
+              ev("void (anonymous namespace)::expand_span_kernel<8>(...)",
+                 420, 500)]
+    r = trace_insert.span_summary(events, torch.device("cuda", 0),
+                                  "query_join")
+    assert r["hand_kernels"] == dict(
+        join_scan=dict(launches=3, ms=pytest.approx(0.12)),
+        expand_span=dict(launches=1, ms=pytest.approx(0.08)))
+    cpu = trace_insert.span_summary(events, torch.device("cpu"),
+                                    "query_join")
+    assert cpu["hand_kernels"] is None
 
 
 def test_trace_retries_a_session_without_device_activity(monkeypatch,

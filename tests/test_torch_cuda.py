@@ -9,8 +9,10 @@ sharded facade (8 shards on one card); `sklstore.probe` through the
 kernel; the measurement tools (bench stages on the card against the
 CPU, the profiler trace, the profiles, bench's default device); the
 enumerator's kernels (kernels.state_scan, kernels.rescan) against their
-plain versions, carry in and out, and their wrappers' checks. They skip
-on a machine without a card.
+plain versions, carry in and out, and their wrappers' checks; the run
+scan of the query join and of compact (kernels.join_scan,
+kernels.run_totals) against theirs. They skip on a machine without a
+card.
 This file imports no jax; on the card's machine (which has no jax) run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -851,4 +853,114 @@ def test_flush_wrappers_check_inputs(device):
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.skl_rows(*args[:4], args[4].cpu(), *args[5:], k, m, b, 8,
                          *dims)
+    assert kernels.LAUNCHES == before
+
+
+# -- the run scan (csrc/run_scan.cu: kernels.join_scan, kernels.run_totals)
+#    against its plain versions on the card --------------------------------
+
+# (slots, longest run): ragged S (one slot, a group cut short, one past a
+# group, tiles of 32 to 2,048 slots cut short); runs of 1-3 slots and runs
+# longer than a tile (tiles without a run start)
+SCAN_SHAPES = [(1, 3), (31, 3), (33, 40), (1000, 3), (4097, 300),
+               ((1 << 17) + 1, 3), ((1 << 20) + 3, 5000),
+               ((1 << 23) + 17, 3), ((1 << 23) + 17, 5000)]
+
+
+@pytest.mark.parametrize("W", [3, 6])
+@pytest.mark.parametrize("n,max_run", SCAN_SHAPES)
+def test_join_scan_matches_plain_version(device, n, max_run, W):
+    """kernels.join_scan equals sklstore._join_scan_torch element for
+    element: index counts past 2^31 (run sums past 2^32), query liveness
+    0, 1 and 2, runs across tiles."""
+    from run_scan_cases import join_inputs
+    words, pay = join_inputs(n, W, max_run, seed=n + W)
+    want = sklstore._join_scan_torch(words, pay)
+    before = kernels.LAUNCHES["join_scan"]
+    got = kernels.join_scan(words.to(device), pay.to(device))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["join_scan"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("n,max_run", SCAN_SHAPES)
+def test_run_totals_matches_plain_version(device, n, max_run):
+    """kernels.run_totals equals store._run_totals_torch: each run's u32
+    total at its last column (sums past 2^32 masked) and every column's
+    run index."""
+    from brisk_tpu_torch.index import store
+    from run_scan_cases import run_inputs
+    data, first = run_inputs(n, max_run, seed=n)
+    want = store._run_totals_torch(data, first)
+    before = kernels.LAUNCHES["run_totals"]
+    got = kernels.run_totals(data.to(device), first.to(device))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["run_totals"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_join_and_compact_on_card_launch_the_run_scan(device):
+    """_query_join_partials and store.compact on CUDA tensors go through
+    the run scan's kernels and equal their CPU results."""
+    from brisk_tpu_torch import _u32
+    from brisk_tpu_torch.index import store
+    rng = np.random.default_rng(3)
+    pool = rng.integers(0, 1 << 31, (3, 900), dtype=np.uint32)
+    ik = pool[:, rng.integers(0, 900, 5000)]
+    qk = pool[:, rng.integers(0, 900, 3000)]
+    qk[:, :50] = 0xFFFFFFFF
+    ic = torch.from_numpy(rng.integers(0, 1 << 32, 5000, dtype=np.int64))
+    ql = torch.from_numpy((rng.random(3000) < 0.9).astype(np.int64))
+    ql[:50] = 0
+    args = (_u32.from_np(ik, "cpu"), ic, _u32.from_np(qk, "cpu"), ql)
+    want = sklstore._query_join_partials(*args)
+    before = dict(kernels.LAUNCHES)
+    got = sklstore._query_join_partials(*(a.to(device) for a in args))
+    assert torch.equal(got.cpu(), want)
+    assert kernels.LAUNCHES["join_scan"] == before["join_scan"] + 1
+    keys = np.concatenate([ik, np.full((3, 3192), 0xFFFFFFFF, np.uint32)],
+                          1)
+    data = torch.cat([ic, torch.zeros(3192, dtype=torch.int64)])
+    cpu = store.compact(store.IndexState(_u32.from_np(keys, "cpu"), data,
+                                         0, 5000))
+    card = store.compact(store.IndexState(_u32.from_np(keys, device),
+                                          data.to(device), 0, 5000))
+    assert kernels.LAUNCHES["run_totals"] == before["run_totals"] + 1
+    assert card.n_sorted == cpu.n_sorted and 0 < cpu.n_sorted < 5000
+    assert torch.equal(card.keys.cpu(), cpu.keys)
+    assert torch.equal(card.data.cpu(), cpu.data)
+
+
+def test_run_scan_wrappers_check_inputs(device):
+    """Device, dtype, shape and contiguity: each wrong input raises before
+    a launch."""
+    words = torch.zeros((3, 100), dtype=torch.int64, device=device)
+    pay = torch.zeros(100, dtype=torch.int64, device=device)
+    first = torch.ones(100, dtype=torch.bool, device=device)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.join_scan(words, pay.cpu())
+    with pytest.raises(TypeError):
+        kernels.join_scan(words.int(), pay)
+    with pytest.raises(ValueError, match="expected shape"):
+        kernels.join_scan(words, pay[:99])
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.join_scan(words.t().contiguous().t(), pay)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        kernels.join_scan(torch.zeros((7, 100), dtype=torch.int64,
+                                      device=device), pay)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.run_totals(pay, first.cpu())
+    with pytest.raises(TypeError):
+        kernels.run_totals(pay, first.long())
+    with pytest.raises(ValueError, match="expected shape"):
+        kernels.run_totals(pay, first[:50])
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.run_totals(torch.zeros(200, dtype=torch.int64,
+                                       device=device)[::2], first)
+    assert kernels.LAUNCHES == before
+    empty = torch.zeros((3, 0), dtype=torch.int64, device=device)
+    assert torch.equal(kernels.join_scan(empty, pay[:0]).cpu(),
+                       torch.zeros(256, dtype=torch.int64))
     assert kernels.LAUNCHES == before

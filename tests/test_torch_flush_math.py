@@ -292,9 +292,38 @@ def test_row_scans_match_plain_version(lib, k, m, b, L, cap):
         assert bool(want[3].any())
 
 
-def test_row_tile_matches_wrapper(lib):
-    """kernels.ROW_TILE, the tile past which the wrapper hands skl_rows a
-    scratch, is the header's."""
+def test_row_tile_comes_from_the_kernel_source(lib, monkeypatch):
+    """The tile past which the skl_rows wrapper hands the kernel a scratch
+    is the source's own: skl_rows.cu returns its block's tile (the
+    header's kRowTile, runs x threads) from the C entry
+    brisk_skl_rows_tile, kernels keeps no copy of it, and the wrapper
+    sizes its scratch from what that entry returns."""
     from brisk_tpu_torch import kernels
     g = _geometry(lib)
-    assert kernels.ROW_TILE == g["row_run"] * g["row_threads"]
+    entry = kernels._SOURCES["skl_rows_tile"]
+    assert entry.path == kernels._SOURCES["skl_rows"].path
+    assert entry.entry == "brisk_skl_rows_tile" and entry.argtypes == []
+    with open(entry.path) as fh:
+        text = fh.read()
+    assert "constexpr int kTile = brisk::kRowTile;" in text
+    assert 'extern "C" int brisk_skl_rows_tile() { return kTile; }' in text
+    with open(os.path.join(REPO, "brisk_tpu_torch", "csrc",
+                           "flush_math.cuh")) as fh:
+        assert "constexpr int kRowTile = kRowThreads * kRowRun;" in fh.read()
+    assert g["row_run"] * g["row_threads"] == 512
+    assert not hasattr(kernels, "ROW_TILE")
+    # the wrapper on host tensors with the checks and the launch stubbed:
+    # a scratch exactly when the lane is longer than the entry's tile
+    launched = []
+    monkeypatch.setattr(kernels, "_check", lambda *a, **kw: None)
+    monkeypatch.setattr(kernels, "_launch",
+                        lambda name, fn, args, dev: launched.append(args))
+    k, m, b = 31, 11, 8
+    args = _row_lanes(k, m, b, 300, seed=1)
+    _, s_max, _, nw = sklstore.skl_dims(k, m, b)
+    for tile, scratch in ((299, True), (300, False), (512, False)):
+        monkeypatch.setattr(
+            kernels, "_entry",
+            lambda name, s_max=None, tile=tile: (lambda *a: tile))
+        kernels.skl_rows(*args, k, m, b, 64, s_max, nw, True)
+        assert (launched[-1][3] is not None) == scratch, tile
