@@ -4,7 +4,8 @@ card, at the shapes the main path gives them:
     python -m brisk_tpu_torch.bench_run_scan
 
 For each shape of SHAPES, on inputs made on the card from a seed (sorted
-runs of 1..max_run slots, their mean length (max_run + 1) / 2; the join's
+runs of 1..max_run slots, their mean length (max_run + 1) / 2, one run
+when max_run >= slots; the join's
 index counts anywhere in [0, 2^32), half of them below 300, its query
 liveness 0, 1 or 2; compact's counts in [0, 2^32), 30% of them 0): the
 kernel (kernels.join_scan or kernels.run_totals) held to its plain
@@ -49,10 +50,13 @@ def inputs(kernel: str, n: int, W: int, max_run: int, dev,
            seed: int = 1234) -> tuple:
     """The kernel's inputs on `dev`: (words (W, n) int64, pay (n,) int64)
     for join_scan, (data (n,) int64, first (n,) bool) for run_totals. A
-    slot starts a run with probability 2 / (max_run + 1); the join's side
-    tags are random within a key."""
+    slot starts a run with probability 2 / (max_run + 1), or only slot 0
+    does when max_run >= n; the join's side tags are random within a
+    key."""
     g = torch.Generator(device=dev).manual_seed(seed)
     first = torch.rand(n, generator=g, device=dev) < 2 / (max_run + 1)
+    if max_run >= n:
+        first.zero_()
     first[0] = True
     big = torch.randint(0, 1 << 32, (n,), generator=g, device=dev)
     small = torch.rand(n, generator=g, device=dev) < 0.5
@@ -105,25 +109,31 @@ def max_abs_err(got, want) -> int:
                                f"!= plain {w.dtype} {tuple(w.shape)}")
         if g.numel():
             err = max(err, int((g - w).abs().max()))
+        if not torch.equal(g, w):  # a difference of -2^63 has no abs
+            err = max(err, 1)
     return err
 
 
 def measure(name: str, kernel: str, n: int, W: int, max_run: int, dev,
-            timed: bool = True) -> dict:
-    """One shape: the kernel against its plain version (raise unless
-    exact) and, when `timed`, the times of the kernel, the plain version
-    and the library call pair, and the bound."""
+            timed: bool = True, repeats: int = 1) -> dict:
+    """One shape: the kernel, called `repeats` times, against its plain
+    version (raise unless every call is exact) and, when `timed`, the
+    times of the kernel, the plain version and the library call pair, and
+    the bound."""
     args = inputs(kernel, n, W, max_run, dev, seed=n + W)
-    got = wrapper(kernel)(*args)
     want = plain(kernel)(*args)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, want)
+    err = 0
+    for _ in range(repeats):
+        got = wrapper(kernel)(*args)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, want))
+        del got
     if err:
         raise RuntimeError(f"{kernel} != its plain version at {name}: "
                            f"max_abs_err {err}")
-    del got, want
+    del want
     row = dict(kernel=kernel, shape=name, n=n, W=W, max_run=max_run,
-               max_abs_err=err)
+               repeats=repeats, max_abs_err=err)
     if timed:
         bound_ms = bytes_moved(kernel, n, W) / HBM_BYTES_PER_S * 1e3
         kernel_ms = bench_expand.time_ms(lambda: wrapper(kernel)(*args))

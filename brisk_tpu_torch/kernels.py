@@ -454,20 +454,28 @@ def skl_rows(key: torch.Tensor, bucket: torch.Tensor,
 
 
 def _scan_tile(n: int) -> int:
-    """Slots a warp of run_scan.cu takes in one tile: a power of two from
-    32 to 2048, the smallest that keeps the tiles (one a warp) at 4,096 or
-    fewer, so that small scans still spread over the card."""
-    tile = 32
-    while tile < 2048 and n > tile * 4096:
+    """Slots a block of run_scan.cu takes in one tile: a power of two from
+    256 (8 warps of one 32-slot group) to 4096 (16 groups a warp), the
+    smallest that keeps the tiles (one a block) at 2,048 or fewer, so that
+    small scans still spread over the card."""
+    tile = 256
+    while tile < 4096 and n > tile * 2048:
         tile *= 2
     return tile
+
+
+def _scan_scratch(n: int, tile: int, dev) -> torch.Tensor:
+    """run_scan.cu's scratch: the tile counter, then each tile's status,
+    aggregate and prefix (the C entry zeroes the counter and statuses)."""
+    return torch.empty(1 + 3 * -(-n // tile), dtype=torch.int64, device=dev)
 
 
 def join_scan(words: torch.Tensor, pay: torch.Tensor) -> torch.Tensor:
     """CUDA run scan of the query join (the contract of
     index.sklstore._join_scan_torch): words (W, S) int64, the join's
     sorted u32 key words with the side tag in bit 0 of words[W - 1]; pay
-    (S,) int64, index counts on index slots and liveness on query slots.
+    (S,) int64, u32 index counts on index slots and liveness on query
+    slots (the kernel reads each int64's low 32 bits).
     Returns the (256,) int64 partial sums: partial p sums, over the query
     slots of [p * L, (p + 1) * L) with liveness 1 (L = ceil(S / 256)),
     their key's index count mod 256."""
@@ -483,7 +491,7 @@ def join_scan(words: torch.Tensor, pay: torch.Tensor) -> torch.Tensor:
         return torch.zeros(256, dtype=torch.int64, device=dev)
     tile = _scan_tile(S)
     parts = torch.empty(256, dtype=torch.int64, device=dev)
-    scratch = torch.empty((2, -(-S // tile)), dtype=torch.int64, device=dev)
+    scratch = _scan_scratch(S, tile, dev)
     _launch("join_scan", _entry("join_scan"), (
         words.data_ptr(), pay.data_ptr(), parts.data_ptr(),
         scratch.data_ptr(), S, W, tile), dev)
@@ -492,8 +500,9 @@ def join_scan(words: torch.Tensor, pay: torch.Tensor) -> torch.Tensor:
 
 def run_totals(data: torch.Tensor, first: torch.Tensor):
     """CUDA run totals of compact (the contract of
-    index.store._run_totals_torch): data (N,) int64 counts in sorted
-    order, first (N,) bool run starts. Returns seg_total (N,) int64, each
+    index.store._run_totals_torch): data (N,) int64 u32 counts in sorted
+    order (the kernel reads their low 32 bits), first (N,) bool run
+    starts. Returns seg_total (N,) int64, each
     run's sum mod 2^32 at its last column and 0 elsewhere, and seg_id (N,)
     int64, each column's run index (the run starts up to it, less one)."""
     if data.dim() != 1:
@@ -507,8 +516,7 @@ def run_totals(data: torch.Tensor, first: torch.Tensor):
     out = torch.empty((2, N), dtype=torch.int64, device=dev)
     if N > 0:
         tile = _scan_tile(N)
-        scratch = torch.empty((2, -(-N // tile)), dtype=torch.int64,
-                              device=dev)
+        scratch = _scan_scratch(N, tile, dev)
         _launch("run_totals", _entry("run_totals"), (
             first.data_ptr(), data.data_ptr(), out[0].data_ptr(),
             out[1].data_ptr(), scratch.data_ptr(), N, tile), dev)

@@ -27,7 +27,11 @@ is non-zero and no final `ok` line is printed):
    versions' times and bounds (brisk_tpu_torch.bench_enumerate). Then
    the run scan's two kernels (csrc/run_scan.cu), the query join's scan
    (join_scan) and compact's run totals (run_totals), at ragged shapes
-   (one slot, groups and tiles cut short, runs longer than a tile) and,
+   (one slot, groups and tiles cut short, runs longer than a tile), at
+   shapes that stress their look-back (one run over 2^26 slots, run
+   starts every ~100,000 slots), each shape called 5 times and every
+   call held to the plain version bit for bit, under a wall-clock guard
+   that ends the run with every thread's traceback, and,
    timed beside their plain versions, the library call pair cumsum +
    cummax and their bounds, at the query joins' and the rekey
    compaction's shapes (brisk_tpu_torch.bench_run_scan).
@@ -96,6 +100,7 @@ fallback.
 """
 
 import contextlib
+import faulthandler
 import json
 import os
 import random
@@ -174,16 +179,29 @@ ENUM_ROWS = (("init-rows-k31", K - 1, M, 4096, K - 1),
 ENUM_KERNELS = ("positions", "rescan", "state_scan", "emit", "skl_rows")
 # the run scan's kernels (csrc/run_scan.cu) and their ragged shapes,
 # untimed: (name, kernel, slots, key words W, longest run): one slot, a
-# group of 32 cut short, tiles of 32 to 2,048 slots cut short, runs
-# longer than a tile (tiles in which no run starts)
+# group of 32 cut short, tiles of 256 to 2,048 slots cut short, runs
+# longer than a tile (tiles in which no run starts); then shapes that
+# stress the look-back: one run over 2^26 slots (no tile after the first
+# starts a run) and run starts every ~100,000 slots
 RUN_SCAN_KERNELS = ("join_scan", "run_totals")
 RUN_SCAN_RAGGED = tuple(
-    (f"ragged-{kernel}-{n}-{W}-{max_run}", kernel, n, W, max_run)
+    (f"{kind}-{kernel}-{n}-{W}-{max_run}", kernel, n, W, max_run)
     for kernel, W in (("join_scan", 3), ("join_scan", 6),
                       ("run_totals", 1))
-    for n, max_run in ((1, 3), (31, 3), (33, 40), (4097, 300),
-                       ((1 << 17) + 1, 3), ((1 << 20) + 3, 5000),
-                       ((1 << 23) + 17, 9000)))
+    for kind, n, max_run in (
+        ("ragged", 1, 3), ("ragged", 31, 3), ("ragged", 33, 40),
+        ("ragged", 4097, 300), ("ragged", (1 << 17) + 1, 3),
+        ("ragged", (1 << 20) + 3, 5000), ("ragged", (1 << 23) + 17, 9000),
+        ("lookback", 1 << 26, 1 << 26),
+        ("lookback", (1 << 26) + 5, 199_999)))
+# calls of each run-scan shape, every one held to the plain version bit
+# for bit (a look-back that read a status before its value would give a
+# stale carry on some call)
+RUN_SCAN_REPEATS = 5
+# wall seconds the run scan's checks may take: past them the run fails
+# with every thread's traceback (a look-back that never ends hangs in
+# the synchronize)
+RUN_SCAN_GUARD_S = 300
 
 
 def check(cond, msg: str) -> None:
@@ -377,14 +395,20 @@ def phase_kernels(dev) -> dict:
     import torch
     from brisk_tpu_torch import bench_enumerate, bench_expand, bench_run_scan
     scan = {"max_abs_err": dict.fromkeys(RUN_SCAN_KERNELS, 0), "rows": []}
-    for shape in RUN_SCAN_RAGGED + bench_run_scan.SHAPES:
-        timed = shape in bench_run_scan.SHAPES
-        r = bench_run_scan.measure(*shape, dev, timed=timed)
-        scan["max_abs_err"][r["kernel"]] = max(
-            scan["max_abs_err"][r["kernel"]], r["max_abs_err"])
-        say("kernel", **{key: v for key, v in r.items() if key != "bytes"})
-        if timed:
-            scan["rows"].append(r)
+    faulthandler.dump_traceback_later(RUN_SCAN_GUARD_S, exit=True)
+    try:
+        for shape in RUN_SCAN_RAGGED + bench_run_scan.SHAPES:
+            timed = shape in bench_run_scan.SHAPES
+            r = bench_run_scan.measure(*shape, dev, timed=timed,
+                                       repeats=RUN_SCAN_REPEATS)
+            scan["max_abs_err"][r["kernel"]] = max(
+                scan["max_abs_err"][r["kernel"]], r["max_abs_err"])
+            say("kernel", **{key: v for key, v in r.items()
+                             if key != "bytes"})
+            if timed:
+                scan["rows"].append(r)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
     enum = {"max_abs_err": dict.fromkeys(ENUM_KERNELS, 0), "rows": []}
     errs = enum["max_abs_err"]
     for geo in ENUM_RAGGED + bench_enumerate.GEOMETRIES:

@@ -11,8 +11,9 @@ CPU, the profiler trace, the profiles, bench's default device); the
 enumerator's kernels (kernels.state_scan, kernels.rescan) against their
 plain versions, carry in and out, and their wrappers' checks; the run
 scan of the query join and of compact (kernels.join_scan,
-kernels.run_totals) against theirs. They skip on a machine without a
-card.
+kernels.run_totals) against theirs, called repeatedly at shapes that
+stress their look-back and replayed from a CUDA graph. They skip on a
+machine without a card.
 This file imports no jax; on the card's machine (which has no jax) run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -898,6 +899,63 @@ def test_run_totals_matches_plain_version(device, n, max_run):
     assert kernels.LAUNCHES["run_totals"] == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# look-back-stressing shapes made on the card (bench_run_scan.inputs: name,
+# kernel, slots, W, longest run): one run over 2^26 slots (no tile after
+# the first starts a run, so every look-back of run_totals and of the join
+# reads back to a prefix), and run starts every ~100,000 slots
+LOOKBACK_SHAPES = [("one-run", "join_scan", 1 << 26, 3, 1 << 26),
+                   ("one-run", "run_totals", 1 << 26, 1, 1 << 26),
+                   ("sparse-starts", "join_scan", (1 << 26) + 5, 6, 199_999),
+                   ("sparse-starts", "run_totals", (1 << 26) + 5, 1,
+                    199_999)]
+
+
+@pytest.mark.parametrize("name,kernel,n,W,max_run", LOOKBACK_SHAPES)
+def test_run_scan_repeats_are_bitwise_equal(device, name, kernel, n, W,
+                                            max_run):
+    """Five calls of each run-scan kernel at a many-tile shape whose
+    look-backs run long: every output equals the plain version's, bit for
+    bit (a reader that saw a status before its value would give a stale
+    carry on some call)."""
+    from brisk_tpu_torch import bench_run_scan
+    row = bench_run_scan.measure(name, kernel, n, W, max_run, device,
+                                 timed=False, repeats=5)
+    assert row["max_abs_err"] == 0 and row["repeats"] == 5
+
+
+def test_run_scan_replays_in_a_cuda_graph(device):
+    """kernels.join_scan and kernels.run_totals captured in one CUDA graph:
+    two replays, the inputs rewritten in place before the second, each
+    give the plain version's result (the call zeroes its tile statuses on
+    its stream, so a replay starts afresh)."""
+    from brisk_tpu_torch import bench_run_scan
+    from brisk_tpu_torch.index import store
+    n = (1 << 20) + 3
+    sets = [(bench_run_scan.inputs("join_scan", n, 3, 40, device, seed=s),
+             bench_run_scan.inputs("run_totals", n, 1, 300, device, seed=s))
+            for s in (1, 2)]
+    (words, pay), (data, first) = (tuple(t.clone() for t in a)
+                                   for a in sets[0])
+    kernels.join_scan(words, pay)  # build and load before the capture
+    kernels.run_totals(data, first)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = dict(kernels.LAUNCHES)
+    with torch.cuda.graph(graph):
+        parts = kernels.join_scan(words, pay)
+        totals = kernels.run_totals(data, first)
+    assert kernels.LAUNCHES["join_scan"] == before["join_scan"] + 1
+    assert kernels.LAUNCHES["run_totals"] == before["run_totals"] + 1
+    for (j_args, r_args) in sets:
+        for dst, src in zip((words, pay, data, first), j_args + r_args):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(parts, sklstore._join_scan_torch(*j_args))
+        for g, w in zip(totals, store._run_totals_torch(*r_args)):
+            assert torch.equal(g, w)
 
 
 def test_join_and_compact_on_card_launch_the_run_scan(device):

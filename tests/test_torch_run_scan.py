@@ -10,10 +10,13 @@ plain version index.sklstore._join_scan_torch) and compact's run totals
   numpy-seeded inputs: the (256,) partials element for element, and
   keys, data and n_sorted array for array;
 - g++ builds the kernels' arithmetic, `csrc/run_scan.cuh`, with
-  `tests/run_scan_host.cpp`, which replays the kernels' three passes
-  (tiles, groups of one slot a lane, the tiles' carries) with 4-lane
-  groups and tiles of 4 and 8 slots, and ctypes holds the replay to the
-  plain versions.
+  `tests/run_scan_host.cpp`, which replays the kernels' one pass (tiles
+  taken in order, warps of groups of one slot a lane, each tile's
+  decoupled look-back over its predecessors' descriptors) with 4-lane
+  groups and tiles of 4, 8 and 16 slots, under look-back schedules that
+  decide which predecessors a tile sees as unpublished, as their
+  aggregate or as their prefix (SCHEDULES), and ctypes holds the replay
+  to the plain versions.
 
 Every comparison is exact (integer data, tolerance 0). Cases: a run whose
 index counts sum past 2^32, all-index and all-query batches, one long
@@ -58,8 +61,8 @@ def lib(tmp_path_factory):
          os.path.join(REPO, "tests", "run_scan_host.cpp"), "-o", so],
         check=True, capture_output=True)
     lib = ctypes.CDLL(so)
-    lib.host_join_scan.argtypes = [_PTR] * 3 + [_LL, _INT, _INT]
-    lib.host_run_totals.argtypes = [_PTR] * 4 + [_LL, _INT]
+    lib.host_join_scan.argtypes = [_PTR] * 3 + [_LL, _INT, _INT, _INT]
+    lib.host_run_totals.argtypes = [_PTR] * 4 + [_LL, _INT, _INT]
     for fn in (lib.host_join_scan, lib.host_run_totals):
         fn.restype = ctypes.c_int
     return lib
@@ -207,56 +210,72 @@ def _capture_join(monkeypatch, case: str, W: int, seed: int):
     return seen["in"], want
 
 
-def _host_join(lib, out, s_pay, tile):
+# The replay's look-back schedules (tests/run_scan_host.cpp): every
+# predecessor seen as its prefix; every one as only its aggregate (the
+# look-back walks to the start unless the join's stop rule ends it); two
+# seeded mixes of unpublished, aggregate and prefix.
+SCHEDULES = {"prefix": 0, "aggregate": 1, "seeded-2": 2, "seeded-3": 3}
+
+
+def _host_join(lib, out, s_pay, tile, schedule):
     parts = torch.empty(256, dtype=torch.int64)
     out, s_pay = out.contiguous(), s_pay.contiguous()
     assert lib.host_join_scan(out.data_ptr(), s_pay.data_ptr(),
                               parts.data_ptr(), out.shape[1], out.shape[0],
-                              tile) == 0
+                              tile, SCHEDULES[schedule]) == 0
     return parts
 
 
+@pytest.mark.parametrize("schedule", SCHEDULES)
 @pytest.mark.parametrize("tile", [4, 8])
 @pytest.mark.parametrize("case", JOIN_CASES)
-def test_join_replay_matches_plain_version(lib, monkeypatch, case, tile):
-    """The kernel's passes over the join's own sorted slots give the plain
-    version's partials (runs across 4- and 8-slot tiles)."""
+def test_join_replay_matches_plain_version(lib, monkeypatch, case, tile,
+                                           schedule):
+    """The kernel's pass over the join's own sorted slots gives the plain
+    version's partials (runs across 4- and 8-slot tiles), whatever its
+    look-backs see."""
     (out, s_pay), want = _capture_join(monkeypatch, case, 3, seed=tile)
-    assert torch.equal(_host_join(lib, out, s_pay, tile), want)
+    assert torch.equal(_host_join(lib, out, s_pay, tile, schedule), want)
 
 
+@pytest.mark.parametrize("schedule", SCHEDULES)
 @pytest.mark.parametrize("n", [1, 3, 4, 5, 8, 9, 33, 256, 257, 1000])
 @pytest.mark.parametrize("max_run", [3, 40])
-def test_join_replay_on_long_and_short_runs(lib, n, max_run):
+def test_join_replay_on_long_and_short_runs(lib, n, max_run, schedule):
     """Synthetic sorted runs, some longer than several tiles, with index
     counts past 2^31 and query slots of liveness 0, 1 and 2 (2 reads
-    nothing): the replay equals the plain version at tiles of 4 and 8."""
+    nothing): the replay equals the plain version at tiles of 4, 8 and
+    16 (two warps of two groups)."""
     for W in (1, 3):
         words, pay = join_inputs(n, W, max_run, seed=n + max_run + W)
         want = t_skl._join_scan_torch(words, pay)
-        for tile in (4, 8):
-            assert torch.equal(_host_join(lib, words, pay, tile), want)
+        for tile in (4, 8, 16):
+            assert torch.equal(
+                _host_join(lib, words, pay, tile, schedule), want)
 
 
-def _host_totals(lib, data, first, tile):
+def _host_totals(lib, data, first, tile, schedule):
     n = data.shape[0]
     out = torch.empty((2, n), dtype=torch.int64)
     assert lib.host_run_totals(first.data_ptr(), data.data_ptr(),
                                out[0].data_ptr(), out[1].data_ptr(), n,
-                               tile) == 0
+                               tile, SCHEDULES[schedule]) == 0
     return out[0], out[1]
 
 
+@pytest.mark.parametrize("schedule", SCHEDULES)
 @pytest.mark.parametrize("n", [1, 2, 4, 7, 8, 9, 64, 300, 1025])
 @pytest.mark.parametrize("max_run", [2, 50])
-def test_run_totals_replay_matches_plain_version(lib, n, max_run):
+def test_run_totals_replay_matches_plain_version(lib, n, max_run,
+                                                 schedule):
     """Run totals and run indices of the replay equal the plain version's
-    at tiles of 4 and 8: runs shorter than a group and runs across many
-    tiles, counts whose run sums pass 2^32."""
+    at tiles of 4, 8 and 16: runs shorter than a group and runs across
+    many tiles, counts whose run sums pass 2^32, whatever the look-backs
+    see."""
     data, first = run_inputs(n, max_run, seed=n * max_run)
     want = t_store._run_totals_torch(data, first)
-    for tile in (4, 8):
-        got = _host_totals(lib, data, first, tile)
+    for tile in (4, 8, 16):
+        got = _host_totals(lib, data, first, tile, schedule)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
 
@@ -343,14 +362,15 @@ def test_compact_wraps_each_run_on_its_own():
 
 
 def test_scan_tile_keeps_tiles_whole_and_few():
-    """The kernels' tile: a multiple of the 32-slot group from 32 to
-    2,048 slots, at most 4,096 tiles until the tile is 2,048."""
-    for n in (1, 31, 32, 1 << 17, (1 << 17) + 1, 1 << 20, 1 << 23,
-              1 << 25, (1 << 31) - 1):
+    """The kernels' tile, one a block: a power of two from 256 slots (8
+    warps of one 32-slot group) to 4,096 (16 groups a warp), at most 2,048
+    tiles until the tile is 4,096."""
+    for n in (1, 31, 32, 256, 257, 1 << 17, (1 << 19) + 1, 1 << 20,
+              (1 << 20) + 1, 1 << 23, 1 << 25, (1 << 31) - 1):
         tile = kernels._scan_tile(n)
-        assert tile % 32 == 0 and 32 <= tile <= 2048
-        assert -(-n // tile) <= 4096 or tile == 2048
-        assert tile == 32 or -(-n // (tile // 2)) > 4096
+        assert tile & (tile - 1) == 0 and 256 <= tile <= 4096
+        assert -(-n // tile) <= 2048 or tile == 4096
+        assert tile == 256 or -(-n // (tile // 2)) > 2048
 
 
 def test_run_scan_wrappers_reject_bad_inputs_before_any_build():
