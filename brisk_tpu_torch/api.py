@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from brisk_tpu_torch import _u32, kernels
-from brisk_tpu_torch.index import pipeline, readout, sklstore, store
+from brisk_tpu_torch.index import (flush_graph, pipeline, readout,
+                                   sklstore, store)
 from brisk_tpu_torch.io import fasta, windows
 from brisk_tpu_torch.oracle import pyref
 from brisk_tpu_torch.ops import enumerate as enum_ops
@@ -85,7 +86,9 @@ class Brisk:
     warm-up replay failed the re-sync certificate are re-run exactly
     through the streaming carry path (_retire). For k > 32 one record
     rides one lane with the exact carry (pipeline.insert_stream_sklnative)
-    and nothing repairs."""
+    and nothing repairs. On a CUDA device each flush of either program is
+    one CUDA graph replay (index.flush_graph), the graph shared by every
+    Brisk of the same geometry."""
 
     def __init__(self, params: Parameters, batch: int = 512,
                  window: int = 512, stack: int = 8, device="cuda"):
@@ -166,10 +169,10 @@ class Brisk:
                record_len_hint: int = None, path: str = None) -> None:
         """Pay set-up before the first request: presize the arena (for
         k > 32 also room for one streaming flush at the lane geometry
-        `record_len_hint` predicts), build the CUDA kernels (on a CUDA
-        device) and the native parser, and prefetch-parse `path` in a
-        background thread. Eager PyTorch has no programs to compile
-        ahead."""
+        `record_len_hint` predicts), build the CUDA kernels and capture
+        the flush's CUDA graph at this geometry (on a CUDA device), load
+        the native parser, and prefetch-parse `path` in a background
+        thread."""
         from brisk_tpu_torch import native
         if path is not None and not n_bases_estimate:
             try:
@@ -184,6 +187,8 @@ class Brisk:
                 self.skl, self.stack * self.batch * l_new)
         if self.device.type == "cuda":
             kernels.build()
+            program, static, inputs = self._zero_flush(record_len_hint)
+            flush_graph.runner(program, self.device, static, inputs)
         native.load()
         if path is not None:
             box = []
@@ -196,6 +201,32 @@ class Brisk:
             t = threading.Thread(target=parse)
             t.start()
             self._prefetch = (path, t, box)
+
+    def _flat_static(self, packer) -> tuple:
+        """The k <= 32 flush program's static arguments."""
+        p = self.params
+        return (p.k, p.m, p.b, self.skl_row_cap, packer.l_buf,
+                packer.useful)
+
+    def _zero_flush(self, record_len_hint: int = None) -> tuple:
+        """(program, static arguments, zero inputs) of one flush at this
+        geometry (for k > 32 at the lane length `record_len_hint`
+        predicts), shaped and typed as insert_file's flushes are."""
+        p, S, B, dev = self.params, self.stack, self.batch, self.device
+        if p.k > 32:
+            packer = self._stream_geometry(record_len_hint)
+            return "stream", (p.k, p.m, p.b, packer.l_new), (
+                torch.zeros((S, B, packer.l_buf), dtype=torch.uint8,
+                            device=dev),
+                torch.ones((S, B), dtype=torch.bool, device=dev),
+                torch.zeros((S, B), dtype=torch.int32, device=dev),
+                enum_ops.zero_carry(B, dev))
+        packer = windows.WindowPacker(p.k, p.m, B, l_out=self.window)
+        fl = next(packer.pack_flat(iter([np.zeros(p.k, np.uint8)]), S))
+        return "flat", self._flat_static(packer), tuple(
+            torch.from_numpy(x).to(dev) for x in (
+                fl.chunk4, fl.valid_start.reshape(S, B),
+                fl.valid_end.reshape(S, B))) + (pipeline.zero_chain(dev),)
 
     def insert_file(self, path: str) -> None:
         try:
@@ -327,7 +358,7 @@ class Brisk:
                     [getattr(bt, field) for bt in batches])).to(dev)
 
             (self.skl, n_sk, n_km, carry,
-             _) = pipeline.insert_stream_sklnative(
+             _) = flush_graph.insert_stream(
                 self.skl, stacked("codes"), stacked("fresh"),
                 stacked("valid_end"), carry, p.k, p.m, p.b, row_cap)
             self._count_acc.append((n_sk, n_km, 0))
@@ -352,15 +383,14 @@ class Brisk:
     def _dispatch_flush(self, packer, flush, chunk4_d, vs_d, ve_d) -> None:
         """Launch one staged flush; its bookkeeping (counters, repairs,
         overflow re-runs) is deferred to _retire."""
-        p = self.params
         flush_rows = self.stack * self.batch * self.skl_row_cap
         if self._rows_ub + flush_rows > self.skl.bucket.shape[0]:
             self._drain()  # exact n_rows; grow only if truly needed
             self.skl = sklstore.ensure_room(self.skl, flush_rows)
         (self.skl, n_sk, n_km, flags, ends,
-         _, self._chain) = pipeline.insert_flat_sklnative(
+         _, self._chain) = flush_graph.insert_flat(
             self.skl, chunk4_d, vs_d, ve_d, self._chain,
-            p.k, p.m, p.b, self.skl_row_cap, packer.l_buf, packer.useful)
+            *self._flat_static(packer))
         self._rows_ub += flush_rows
         self._dirty = True
         self._expanded = None

@@ -11,8 +11,9 @@ run. Stages, one function each (the reference's names where the meaning
 is the same):
 
   product    product_device_bench: steady-state
-             pipeline.insert_flat_sklnative over packed window stacks of a
-             random record (`value`, k-mers/s).
+             pipeline.insert_flat_sklnative (one CUDA graph replay a flush,
+             flush_graph) over packed window stacks of a random record
+             (`value`, k-mers/s).
   e2e        e2e_bench: Brisk.warmup, insert_file and finalize on a 50 Mb
              synthetic genome at k=31, then skl_stats and query_file.
   expand     expand_bench: the span-expansion kernel at 2^23 rows, k=31,
@@ -168,10 +169,11 @@ def product_device_bench(dev: torch.device, rec_bases: int = 24_000_000,
                          stack: int = 8, n_stacks: int = 3,
                          trials: int = 3) -> dict:
     """Steady-state rate of the product insert program
-    (pipeline.insert_flat_sklnative, what Brisk.insert_file dispatches
-    for k <= 32) on `n_stacks` packed stacks of one random record, best
-    of `trials`; the arena's n_rows is reset between trials."""
-    from brisk_tpu_torch.index import pipeline, sklstore
+    (pipeline.insert_flat_sklnative through flush_graph.insert_flat: what
+    Brisk.insert_file dispatches for k <= 32, one CUDA graph replay a
+    flush on the card) on `n_stacks` packed stacks of one random record,
+    best of `trials`; the arena's n_rows is reset between trials."""
+    from brisk_tpu_torch.index import flush_graph, pipeline, sklstore
     row_cap = max(16, window // 4)
     rng = np.random.default_rng(1234)
     rec = rng.integers(0, 4, rec_bases, dtype=np.uint8)
@@ -184,7 +186,7 @@ def product_device_bench(dev: torch.device, rec_bases: int = 24_000_000,
     chain = pipeline.zero_chain(dev)
 
     def flush(sk, ch, st):
-        out = pipeline.insert_flat_sklnative(
+        out = flush_graph.insert_flat(
             sk, st[0], st[1], st[2], ch, k, m, b, row_cap, packer.l_buf,
             packer.useful)
         return out[0], out[6], out[5]

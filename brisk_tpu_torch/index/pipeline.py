@@ -11,10 +11,19 @@ k > 32: one record per lane with the exact minimizer carry across
 batches (insert_stream_sklnative); the same row segmentation and dense
 append.
 
+Each of the two is a pure body that touches no arena (flat_flush_body,
+stream_flush_body: the S batches' live-first row blocks, flags, counts
+and chain or carry) followed by append_blocks, S appends in batch order.
+On the card index.flush_graph captures each body once per geometry and
+replays it once a flush, as brisk_tpu's jit runs each program as one
+dispatch.
+
 Generic payloads: insert_windows_payload runs the windowed enumeration
 and certificate into an index.payload state, one (count, position)
 column per emission.
 """
+
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -70,25 +79,65 @@ def _unpack4_device(codes4: torch.Tensor, l_buf: int) -> torch.Tensor:
     return un.reshape(c.shape[0], -1)[:, :l_buf]
 
 
-def _skl_window_scan(skl, codes: torch.Tensor, valid_start: torch.Tensor,
-                     valid_end: torch.Tensor, chain,
-                     k: int, m: int, b: int, row_cap: int, l_buf: int):
-    """Insert a stack of window batches: codes (S, B, l_buf4) packed.
-    Returns (skl', n_sk, n_km, flags (S, B) uint8 [bit0 = certified,
-    bit1 = skl row overflow], ends (MinimizerState of (S, B) leaves),
-    n_rows_after, chain')."""
+class Blocks(NamedTuple):
+    """One flush's S live-first row blocks (int32 u32 bit patterns), R =
+    B * row_cap rows each: batch i's live rows first in genome order,
+    then its dead tail."""
+    bucket: torch.Tensor  # (S, R)
+    meta: torch.Tensor    # (S, R)
+    nucs: torch.Tensor    # (S, NW, R)
+
+
+def _live_first(rb, rm, rn, iota: torch.Tensor):
+    """One batch's rows (rows_from_emissions) -> its block (bucket (R,),
+    meta (R,), nucs (NW, R) int32, live rows first, genome order kept
+    by a stable sort) and its live count."""
+    R = iota.shape[0]
+    rb_f = rb.reshape(R)
+    live = rb_f != INVALID
+    order = torch.sort(torch.where(live, iota, INVALID), stable=True).indices
+    return (to_i32(rb_f[order]), to_i32(rm.reshape(R)[order]),
+            to_i32(rn.reshape(rn.shape[0], R)[:, order]), live.sum())
+
+
+def _stack_blocks(blocks: list) -> Tuple[Blocks, torch.Tensor]:
+    """[(bucket, meta, nucs, n_live)] of S batches -> (Blocks, n_live
+    (S,) int64)."""
+    b, m, n, live = zip(*blocks)
+    return (Blocks(torch.stack(b), torch.stack(m), torch.stack(n)),
+            torch.stack(live))
+
+
+def append_blocks(skl, blocks: Blocks, n_live: torch.Tensor):
+    """Append a flush's S blocks to the arena in batch order, one
+    sklstore.append_n each: every block is written whole at the device
+    row offset and n_rows advances by its live count, so the next block
+    overwrites its dead tail (one scatter of all S blocks would write
+    duplicate indices). Precondition: skl.n_rows + S*R <= rcap."""
+    iota = torch.arange(blocks.bucket.shape[1], device=n_live.device)
+    for i in range(n_live.shape[0]):
+        skl = sklstore.append_n(skl, blocks.bucket[i], blocks.meta[i],
+                                blocks.nucs[i], n_live[i], iota)
+    return skl
+
+
+def _window_scan_body(codes: torch.Tensor, valid_start: torch.Tensor,
+                      valid_end: torch.Tensor, chain,
+                      k: int, m: int, b: int, row_cap: int, l_buf: int):
+    """Enumerate a stack of window batches into row blocks: codes (S, B,
+    l_buf4) packed. Returns (Blocks, n_live (S,), flags (S, B) uint8
+    [bit0 = certified, bit1 = skl row overflow], ends (MinimizerState of
+    (S, B) leaves), n_sk, n_km, chain'). Touches no arena."""
     S, B, _ = codes.shape
     margin = k - 1
     dev = codes.device
     fresh = torch.ones(B, dtype=torch.bool, device=dev)
     zero = enum_ops.zero_carry(B, dev)
     pos_out = torch.arange(margin, l_buf, device=dev)[None, :]
-    nw = skl.nucs.shape[0]
-    R = B * row_cap
-    iota = torch.arange(R, device=dev)
+    iota = torch.arange(B * row_cap, device=dev)
     n_sk = torch.zeros((), dtype=torch.int64, device=dev)
     n_km = torch.zeros((), dtype=torch.int64, device=dev)
-    flags, ends = [], []
+    blocks, flags, ends = [], [], []
     for i in range(S):
         vs_i, ve_i = valid_start[i], valid_end[i]
         codes_i = _unpack4_device(codes[i], l_buf)
@@ -100,36 +149,29 @@ def _skl_window_scan(skl, codes: torch.Tensor, valid_start: torch.Tensor,
         rb, rm, rn, ovf = sklstore.rows_from_emissions(
             em.key, em.bucket, em.mini_idx, em.use_rc, ok,
             first_valid, em.boundary, k, m, b, row_cap)
-        rb_f = rb.reshape(R)
-        live = rb_f != INVALID
-        # live-first stable order (genome order kept within the flush)
-        order = torch.sort(torch.where(live, iota, INVALID),
-                           stable=True).indices
-        skl = sklstore.append_n(skl, to_i32(rb_f[order]),
-                                to_i32(rm.reshape(R)[order]),
-                                to_i32(rn.reshape(nw, R)[:, order]),
-                                live.sum())
+        blocks.append(_live_first(rb, rm, rn, iota))
         n_sk = n_sk + (em.boundary & ok).sum()
         n_km = n_km + ok.sum()
         flags.append(exact.to(torch.uint8) | (ovf.to(torch.uint8) << 1))
         ends.append(end)
     ends = MinimizerState(*(torch.stack(f) for f in zip(*ends)))
-    return (skl, n_sk, n_km, torch.stack(flags), ends,
-            skl.n_rows.clone(), chain)
+    return (*_stack_blocks(blocks), torch.stack(flags), ends, n_sk, n_km,
+            chain)
 
 
-def insert_flat_sklnative(skl, chunk4: torch.Tensor,
-                          valid_start: torch.Tensor,
-                          valid_end: torch.Tensor, chain,
-                          k: int, m: int, b: int,
-                          row_cap: int, l_buf: int, useful: int):
-    """THE product insert program (k <= 32). chunk4: ((S*B + ext) *
+def flat_flush_body(chunk4: torch.Tensor, valid_start: torch.Tensor,
+                    valid_end: torch.Tensor, chain, k: int, m: int, b: int,
+                    row_cap: int, l_buf: int, useful: int):
+    """Everything insert_flat_sklnative does but touch the arena: the
+    window build, then S x (enumerate_batch, _chain_exact,
+    rows_from_emissions, live-first sort). chunk4: ((S*B + ext) *
     useful4,) uint8 packed codes with window j of the flush at byte
     offset j*useful4 (io.windows.WindowPacker.pack_flat); valid_start,
     valid_end (S, B). The overlapping l_buf4-wide windows are `nparts`
     statically shifted row slices of the useful4-wide chunk rows,
-    concatenated along the byte axis. Returns the _skl_window_scan
-    tuple. Precondition: skl.n_rows + S*B*row_cap <= rcap."""
+    concatenated along the byte axis. Returns (Blocks, n_live (S,),
+    flags, ends, n_sk, n_km, chain') as _window_scan_body. A pure
+    function of its inputs: flush_graph captures it."""
     S, B = valid_start.shape
     SB = S * B
     u4 = useful // 4
@@ -138,8 +180,56 @@ def insert_flat_sklnative(skl, chunk4: torch.Tensor,
     rows = chunk4.reshape(SB + nparts - 1, u4)
     win4 = torch.cat([rows[s:s + SB] for s in range(nparts)], dim=1)[:, :lb4]
     codes = win4.reshape(S, B, lb4)
-    return _skl_window_scan(skl, codes, valid_start, valid_end, chain,
-                            k, m, b, row_cap, l_buf)
+    return _window_scan_body(codes, valid_start, valid_end, chain,
+                             k, m, b, row_cap, l_buf)
+
+
+def insert_flat_sklnative(skl, chunk4: torch.Tensor,
+                          valid_start: torch.Tensor,
+                          valid_end: torch.Tensor, chain,
+                          k: int, m: int, b: int,
+                          row_cap: int, l_buf: int, useful: int):
+    """THE product insert program (k <= 32): flat_flush_body, then
+    append_blocks. Returns (skl', n_sk, n_km, flags (S, B) uint8 [bit0 =
+    certified, bit1 = skl row overflow], ends (MinimizerState of (S, B)
+    leaves), n_rows_after, chain'). Precondition: skl.n_rows + S*B*row_cap
+    <= rcap. On the card, flush_graph.insert_flat runs the same program
+    as one CUDA graph replay."""
+    blocks, n_live, flags, ends, n_sk, n_km, chain = flat_flush_body(
+        chunk4, valid_start, valid_end, chain, k, m, b, row_cap, l_buf,
+        useful)
+    skl = append_blocks(skl, blocks, n_live)
+    return skl, n_sk, n_km, flags, ends, skl.n_rows.clone(), chain
+
+
+def stream_flush_body(codes: torch.Tensor, fresh: torch.Tensor,
+                      valid_end: torch.Tensor, carry: MinimizerState,
+                      k: int, m: int, b: int, row_cap: int):
+    """Everything insert_stream_sklnative does but touch the arena:
+    S x (enumerate_batch with the carry, rows_from_emissions, live-first
+    sort). Returns (Blocks, n_live (S,), n_sk, n_km, carry'). A pure
+    function of its inputs: flush_graph captures it."""
+    S, B, L_buf = codes.shape
+    margin = k - 1
+    dev = codes.device
+    iota = torch.arange(B * row_cap, device=dev)
+    first_valid = (torch.arange(margin, L_buf, device=dev) == margin
+                   ).expand(B, L_buf - margin)
+    n_sk = torch.zeros((), dtype=torch.int64, device=dev)
+    n_km = torch.zeros((), dtype=torch.int64, device=dev)
+    blocks = []
+    for i in range(S):
+        fresh_i, ve_i = fresh[i], valid_end[i]
+        em, carry = enum_ops.enumerate_batch(codes[i], fresh_i, ve_i, carry,
+                                             k, m, b)
+        rb, rm, rn, _ = sklstore.rows_from_emissions(
+            em.key, em.bucket, em.mini_idx, em.use_rc, em.valid,
+            first_valid, em.boundary, k, m, b, row_cap)
+        blocks.append(_live_first(rb, rm, rn, iota))
+        n_sk = n_sk + (em.boundary & em.valid).sum() + (fresh_i
+                                                        & (ve_i > 0)).sum()
+        n_km = n_km + em.valid.sum()
+    return (*_stack_blocks(blocks), n_sk, n_km, carry)
 
 
 def insert_stream_sklnative(skl, codes: torch.Tensor, fresh: torch.Tensor,
@@ -151,37 +241,14 @@ def insert_stream_sklnative(skl, codes: torch.Tensor, fresh: torch.Tensor,
     codes; fresh, valid_end (S, B); carry a MinimizerState of (B,)
     leaves. Every lane's first valid emission starts a row (rows split
     at batch seams; content and counts are unaffected). n_sk adds one
-    super-k-mer per fresh non-empty lane. Returns (skl', n_sk, n_km,
-    carry', n_rows_after). Precondition: skl.n_rows + S*B*row_cap <=
-    rcap."""
-    S, B, L_buf = codes.shape
-    margin = k - 1
-    dev = codes.device
-    nw = skl.nucs.shape[0]
-    R = B * row_cap
-    iota = torch.arange(R, device=dev)
-    first_valid = (torch.arange(margin, L_buf, device=dev) == margin
-                   ).expand(B, L_buf - margin)
-    n_sk = torch.zeros((), dtype=torch.int64, device=dev)
-    n_km = torch.zeros((), dtype=torch.int64, device=dev)
-    for i in range(S):
-        fresh_i, ve_i = fresh[i], valid_end[i]
-        em, carry = enum_ops.enumerate_batch(codes[i], fresh_i, ve_i, carry,
-                                             k, m, b)
-        rb, rm, rn, _ = sklstore.rows_from_emissions(
-            em.key, em.bucket, em.mini_idx, em.use_rc, em.valid,
-            first_valid, em.boundary, k, m, b, row_cap)
-        rb_f = rb.reshape(R)
-        live = rb_f != INVALID
-        order = torch.sort(torch.where(live, iota, INVALID),
-                           stable=True).indices
-        skl = sklstore.append_n(skl, to_i32(rb_f[order]),
-                                to_i32(rm.reshape(R)[order]),
-                                to_i32(rn.reshape(nw, R)[:, order]),
-                                live.sum())
-        n_sk = n_sk + (em.boundary & em.valid).sum() + (fresh_i
-                                                        & (ve_i > 0)).sum()
-        n_km = n_km + em.valid.sum()
+    super-k-mer per fresh non-empty lane. stream_flush_body, then
+    append_blocks. Returns (skl', n_sk, n_km, carry', n_rows_after).
+    Precondition: skl.n_rows + S*B*row_cap <= rcap. On the card,
+    flush_graph.insert_stream runs the same program as one CUDA graph
+    replay."""
+    blocks, n_live, n_sk, n_km, carry = stream_flush_body(
+        codes, fresh, valid_end, carry, k, m, b, row_cap)
+    skl = append_blocks(skl, blocks, n_live)
     return skl, n_sk, n_km, carry, skl.n_rows.clone()
 
 

@@ -123,14 +123,17 @@ def append(state: SklState, bucket: torch.Tensor, meta: torch.Tensor,
 
 
 def append_n(state: SklState, bucket: torch.Tensor, meta: torch.Tensor,
-             nucs: torch.Tensor, n_live: torch.Tensor) -> SklState:
+             nucs: torch.Tensor, n_live: torch.Tensor,
+             iota: torch.Tensor = None) -> SklState:
     """DENSE append at the DEVICE row offset n_rows, in place: write the
     full fixed-width int32 block (live rows first) but advance n_rows by
     only the live count, so the block's dead tail is overwritten by the
     next append. No host read of n_rows; the caller guarantees
-    n_rows + block_width <= rcap (host upper bound)."""
-    idx = state.n_rows + torch.arange(bucket.shape[0],
-                                      device=bucket.device)
+    n_rows + block_width <= rcap (host upper bound). iota: arange(block
+    width) on the device, when the caller appends several blocks."""
+    if iota is None:
+        iota = torch.arange(bucket.shape[0], device=bucket.device)
+    idx = state.n_rows + iota
     state.bucket.index_copy_(0, idx, bucket)
     state.meta.index_copy_(0, idx, meta)
     state.nucs.index_copy_(1, idx, nucs)

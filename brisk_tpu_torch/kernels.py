@@ -249,6 +249,24 @@ def _launch(name: str, fn, args: tuple, dev) -> None:
     LAUNCHES[name] += 1
 
 
+def launch_delta(before: dict, after: dict) -> dict:
+    """Launches of each kernel between two snapshots of LAUNCHES (the
+    kernels whose count changed)."""
+    return {name: n - before.get(name, 0) for name, n in after.items()
+            if n != before.get(name, 0)}
+
+
+def add_launches(delta: dict, times: int = 1, counts: dict = None) -> None:
+    """Add `times` x `delta` (a launch_delta) to `counts` (LAUNCHES by
+    default). A CUDA graph's capture calls the wrappers without launching
+    anything and its replays launch without calling them, so a graph
+    runner takes its capture's delta back out (times=-1) and adds it on
+    every replay: LAUNCHES keeps counting the kernels run on the card."""
+    counts = LAUNCHES if counts is None else counts
+    for name, n in delta.items():
+        counts[name] += times * n
+
+
 def _ptrs(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(
         *[None if t is None else t.data_ptr() for t in tensors])

@@ -5,9 +5,14 @@
         [--deploy-bases N [--data-dir DIR]]
 
 At the bench geometry (k=31 m=11 b=8, batch 2048, window 512, stack 8)
-on an 8 Mb random record (seed 7): one pipeline.insert_flat_sklnative
-flush into an empty arena (`flush`), sklstore.finalize_device of that
-arena (`finalize`), and the query_file route's join of a small query
+on an 8 Mb random record (seed 7): one flush into an empty arena as
+Brisk runs it (`flush`: flush_graph.insert_flat, on a card one CUDA graph
+replay of pipeline.insert_flat_sklnative's body and the arena's appends),
+the same flush through the eager program into another empty arena
+(`flush_eager`: pipeline.insert_flat_sklnative, the loop of torch ops and
+kernel launches; the two arenas must be equal), sklstore.finalize_device
+of the first arena (`finalize`), and the query_file route's join of a
+small query
 (the record's first 1 Mb, enumerated into a shadow arena outside the
 span) against the finalized arena (`query_join`,
 sklstore.query_join_total). Each program runs once to warm up, once
@@ -22,7 +27,11 @@ for all three spans once counted no kernel in the join.
 
 Writes one Chrome trace per span to DIR/trace_<span>.json (DIR defaults
 to brisk_trace in the temp directory) and prints one JSON line per span:
-the traced and untraced wall ms, CUDA kernel launches, device-busy ms
+the traced and untraced wall ms, CUDA kernel launches (`launches`: the
+kernels the device ran, as CUPTI records them, one per kernel of a graph
+replay too), the host's launch and copy calls (`host_launch_calls`: the
+CUDA API calls (cuda*, cu*) on the CPU timeline that launch a kernel or
+a graph or copy or set memory, by name in `host_calls`), device-busy ms
 (the union of the kernel, memcpy and memset intervals of the session),
 device_idle_share = 1 - busy / traced wall, the 10 kernels with the
 most device time, the port's hand-written kernels that ran (launches and
@@ -59,7 +68,7 @@ import torch
 from brisk_tpu_torch import bench
 from brisk_tpu_torch.bench import sync
 
-SPANS = ("flush", "finalize", "query_join")
+SPANS = ("flush", "flush_eager", "finalize", "query_join")
 # the port's hand-written kernels by a part of their device functions'
 # names (csrc/*.cu): kernels.LAUNCHES names, and the span expansion
 HAND_KERNELS = {"expand_span": "expand_span_kernel",
@@ -67,6 +76,11 @@ HAND_KERNELS = {"expand_span": "expand_span_kernel",
                 "state_scan": "state_scan_kernel", "emit": "emit_kernel",
                 "skl_rows": "skl_rows_kernel", "join_scan": "join_scan_",
                 "run_totals": "run_totals_"}
+# the host calls that put work on the device (CUDA API names, cuda* and
+# cu*, by prefix): kernel and graph launches, copies and memsets
+HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                     "cuGraphLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset",
+                     "cuMemset")
 
 
 def _write_query(path: str, codes: np.ndarray, read_len: int = 10_000):
@@ -78,17 +92,19 @@ def _write_query(path: str, codes: np.ndarray, read_len: int = 10_000):
 
 def _run_programs(dev, stack_t, packer, query_path, params, geo,
                   span=lambda name: nullcontext()) -> dict:
-    """The three programs on a fresh arena, each inside span(name) and
+    """The four spans (SPANS) on fresh arenas, each inside span(name) and
     ended by a synchronize: {name: wall ms}."""
     from brisk_tpu_torch.api import Brisk
-    from brisk_tpu_torch.index import pipeline, sklstore
+    from brisk_tpu_torch.index import flush_graph, pipeline, sklstore
     k, m, b = params.k, params.m, params.b
     row_cap = max(16, geo["window"] // 4)
     nw = sklstore.skl_dims(k, m, b)[3]
     flush_rows = geo["stack"] * geo["batch"] * row_cap
-    skl = sklstore.empty(1 << max(14, (2 * flush_rows - 1).bit_length()),
-                         1 << 14, nw, dev)
-    chain = pipeline.zero_chain(dev)
+    rcap = 1 << max(14, (2 * flush_rows - 1).bit_length())
+    skl, skl_eager = (sklstore.empty(rcap, 1 << 14, nw, dev)
+                      for _ in range(2))
+    static = (k, m, b, row_cap, packer.l_buf, packer.useful)
+    chains = [pipeline.zero_chain(dev) for _ in range(2)]
     wall = {}
 
     @contextmanager
@@ -101,11 +117,19 @@ def _run_programs(dev, stack_t, packer, query_path, params, geo,
             wall[name] = 1e3 * (time.perf_counter() - t)
 
     with timed("flush"):
-        out = pipeline.insert_flat_sklnative(
-            skl, *stack_t, chain, k, m, b, row_cap, packer.l_buf,
-            packer.useful)
+        out = flush_graph.insert_flat(skl, *stack_t, chains[0], *static)
         skl = out[0]
         int(out[5])  # data-dependent readback (n_rows)
+    with timed("flush_eager"):
+        out = pipeline.insert_flat_sklnative(skl_eager, *stack_t, chains[1],
+                                             *static)
+        skl_eager = out[0]
+        int(out[5])
+    if not all(torch.equal(getattr(skl, f), getattr(skl_eager, f))
+               for f in ("bucket", "meta", "nucs", "n_rows")):
+        raise RuntimeError("the flush and the eager flush built different "
+                           "arenas")
+    del skl_eager
     with timed("finalize"):
         skl = sklstore.finalize_device(skl, k, m, b)
         int(skl.n_fin_kmers)
@@ -153,7 +177,8 @@ def span_summary(events, dev: torch.device, name: str,
     wall_ms = (hi - lo) / 1e3
     rec = dict(span=name, traced_wall_ms=wall_ms)
     if dev.type != "cuda":
-        rec.update(launches=None, busy_ms=None, device_idle_share=None,
+        rec.update(launches=None, host_launch_calls=None, host_calls=None,
+                   busy_ms=None, device_idle_share=None,
                    top_kernels=None, hand_kernels=None, outside_span=None,
                    cpu_ops=sum(
                        1 for e in cpu if e is not sp
@@ -174,7 +199,14 @@ def span_summary(events, dev: torch.device, name: str,
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
-    rec.update(launches=len(kernels), busy_ms=busy,
+    host_calls = {}
+    for e in cpu:
+        if (e.name.startswith(HOST_LAUNCH_CALLS)
+                and lo <= e.time_range.start and e.time_range.end <= hi):
+            host_calls[e.name] = host_calls.get(e.name, 0) + 1
+    rec.update(launches=len(kernels),
+               host_launch_calls=sum(host_calls.values()),
+               host_calls=host_calls, busy_ms=busy,
                device_idle_share=1.0 - busy / wall_ms,
                memcpy_memset=len(device) - len(kernels),
                top_kernels=[dict(name=n[:120], launches=c, ms=t)
@@ -202,7 +234,7 @@ def _hand_kernels(by_name: dict) -> dict:
 
 
 def _traced_pass(run, activities, out_dir: str):
-    """The three programs, each in a profiler session of its own:
+    """The four spans, each in a profiler session of its own:
     ({name: wall ms}, {name: span summary}); writes trace_<span>.json."""
     from torch.profiler import profile, record_function
     dev = run[0]
@@ -228,8 +260,8 @@ def trace(dev: torch.device, out_dir: str, rec_bases: int = 8_000_000,
           query_bases: int = 1_000_000, k: int = 31, m: int = 11,
           b: int = 8, batch: int = 2048, window: int = 512,
           stack: int = 8, seed: int = 7, attempts: int = 3) -> list:
-    """Warm up, time untraced, then trace the three programs (see the
-    module note); returns one summary dict per span, in SPANS order."""
+    """Warm up, time untraced, then trace the four spans (see the module
+    note); returns one summary dict per span, in SPANS order."""
     from torch.profiler import ProfilerActivity
 
     from brisk_tpu_torch import kernels
@@ -281,8 +313,6 @@ def trace_query_file(dev: torch.device, out_dir: str, n_bases: int,
     index, traced (see the module note): the span summary of
     `query_file`, with its wall and untraced wall ms and the query
     total; writes DIR/trace_query_file.json."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
     from brisk_tpu_torch.api import Brisk
     from brisk_tpu_torch.params import Parameters
     path = bench.synth_path(data_dir, n_bases)
@@ -296,23 +326,36 @@ def trace_query_file(dev: torch.device, out_dir: str, n_bases: int,
     untraced = idx.query_file(path)
     sync(dev)
     untraced_ms = 1e3 * (time.perf_counter() - t)
+    traced, rec = traced_call(dev, "query_file",
+                              lambda: idx.query_file(path), out_dir)
+    if not total == untraced == traced:
+        raise RuntimeError("the traced query_file disagrees with the "
+                           "untraced one")
+    return dict(rec, untraced_wall_ms=untraced_ms, n_bases=n_bases,
+                query_total=traced)
+
+
+def traced_call(dev: torch.device, name: str, fn, out_dir: str = None,
+                top: int = 10):
+    """fn() in a profiler session of its own, inside a record_function
+    span `name` that ends with a synchronize: (fn's result, the span's
+    summary with its wall ms and `top` kernels); writes
+    DIR/trace_<name>.json when out_dir is given."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
-        with record_function("query_file"):
+        with record_function(name):
             t = time.perf_counter()
-            traced = idx.query_file(path)
+            out = fn()
             sync(dev)
             wall_ms = 1e3 * (time.perf_counter() - t)
-    if not total == untraced == traced:
-        raise RuntimeError("the traced query_file disagrees with the "
-                           "untraced one")
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "trace_query_file.json"))
-    return dict(span_summary(prof.events(), dev, "query_file"),
-                wall_ms=wall_ms, untraced_wall_ms=untraced_ms,
-                n_bases=n_bases, query_total=traced)
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
+    return out, dict(span_summary(prof.events(), dev, name, top),
+                     wall_ms=wall_ms)
 
 
 def main(argv=None) -> int:

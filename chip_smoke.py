@@ -42,6 +42,17 @@ is non-zero and no final `ok` line is printed):
    (5,000 records of 10 kb, brisk_tpu_torch.io.synth.write_synth, seed
    1234) through warmup -> insert_file -> finalize, then stats, point
    lookups and query_file, checked against the reference's totals.
+   flush-graph: the flush program as Brisk runs it on the card, one CUDA
+   graph replay a flush (index.flush_graph), against the eager program
+   (pipeline.insert_flat_sklnative) on the deployment's first 6 flushes:
+   every flush's flags, end states, counts, n_rows and chain held to the
+   end (more flushes than Brisk._pending's depth of 4) and the arenas'
+   whole columns, bit for bit; the flush wall of each path; one flush of
+   each under torch.profiler (trace_insert.traced_call): the host's
+   launch and copy calls and the kernels the device ran; the cached
+   graphs (captures), their replays and the graph pools' MiB. The
+   deployment, the second insert, k63-deploy, k63-short and the trace
+   each fail unless their flushes replayed a graph.
 5. consolidate: the same 50 Mb inserted a second time (two finalize
    segments), lookups doubled, then consolidate() into one segment with
    the same distinct count and lookups; the kernel against its plain
@@ -77,9 +88,10 @@ is non-zero and no final `ok` line is printed):
 8. counter-cli: `python -m brisk_tpu_torch.apps.counter --mode 2
    --device cuda -o <kff>` at k=31 and k=63.
 9. trace: brisk_tpu_torch.trace_insert (torch.profiler) at the
-   deployment's lanes and window, one batch per stack: the flush,
-   finalize and query-join spans each launched kernels and have a device
-   idle share strictly between 0 and 1.
+   deployment's lanes and window, one batch per stack: the flush (the
+   graph replay), the eager flush, finalize and query-join spans each
+   launched kernels and have a device idle share strictly between 0 and
+   1; each span's host launch calls are printed beside its kernels.
 10. bench-quick: `python -m brisk_tpu_torch.bench --quick` in a child
    process on the card: exit 0, no `_error` field, its k-mer counts and
    query total equal to the oracle's (oracle.pyref, computed here
@@ -141,8 +153,11 @@ TRACE_SIZE = dict(rec_bases=1_000_000, query_bases=250_000, batch=2048,
 # launches of each traced span at TRACE_SIZE measured on the card when
 # the enumerator ran as torch ops (the flush's per-position loop), printed
 # beside this run's
-LOOP_TRACE_LAUNCHES = {"flush": "10932", "finalize": "105-110",
-                       "query_join": "120-127"}
+LOOP_TRACE_LAUNCHES = {"flush": "10932", "flush_eager": "10932",
+                       "finalize": "105-110", "query_join": "120-127"}
+# the deployment's first flushes held graph against eager (more than
+# Brisk._pending's depth of 4)
+FLUSH_GRAPH_FLUSHES = 6
 SHARDED_PARITY = (((K, M, B), 200_000,
                    dict(n_devices=8, batch_per_shard=8, window=64,
                         stack=4)),
@@ -269,6 +284,12 @@ def scan_calls():
                      for name, n, t0, t1 in events)
 
 
+def graph_replays() -> int:
+    """Flush graph replays so far, over every cached graph."""
+    from brisk_tpu_torch.index import flush_graph
+    return sum(g["replays"] for g in flush_graph.graphs())
+
+
 def check_enumerated(n: dict, phase: str, rows: bool = True) -> None:
     """The phase enumerated k-mers on the card through every enumerator
     kernel and, with `rows`, built super-k-mer rows through skl_rows."""
@@ -303,13 +324,17 @@ def peak_gib(dev):
 @contextlib.contextmanager
 def timed_state_machine(dev):
     """The per-position loop's share of insert: a synchronized host clock
-    around every call of the enumerator's state machine, summed into the
-    yielded dict's "s"."""
+    around every eager call of the enumerator's state machine, summed into
+    the yielded dict's "s". A flush graph's replays run it without a
+    call, and its capture cannot synchronize: neither is timed."""
+    import torch
     from brisk_tpu_torch.ops import enumerate as enum_ops
     loop = {"s": 0.0}
     state_machine = enum_ops._state_machine
 
     def timed(*args):
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            return state_machine(*args)
         sync(dev)
         t = time.perf_counter()
         out = state_machine(*args)
@@ -533,6 +558,7 @@ def phase_deployment(dev, tmp: str) -> dict:
                 device=dev)
     reset_peak(dev)
     reset_launches()
+    replays0 = graph_replays()
     with timed_state_machine(dev) as loop:
         t0 = time.perf_counter()
         idx.warmup(path=path)
@@ -543,6 +569,8 @@ def phase_deployment(dev, tmp: str) -> dict:
         sync(dev)
         t2 = time.perf_counter()
     loop_s = loop["s"]
+    check(graph_replays() > replays0,
+          "the deployment's flushes replayed no graph")
     launches_before = launches()
     idx.finalize()
     sync(dev)
@@ -612,17 +640,111 @@ def phase_deployment(dev, tmp: str) -> dict:
                 direct=direct, nb_kmers=st["nb_kmers"], scan_calls=joins)
 
 
+def phase_flush_graph(dev, dep: dict) -> dict:
+    """The k=31 flush as Brisk runs it on the card (flush_graph.insert_flat,
+    one graph replay a flush) against the eager program on the
+    deployment's first FLUSH_GRAPH_FLUSHES flushes at its geometry, bit
+    for bit; each path's flush wall; one flush of each traced; the cached
+    graphs, replays and pools."""
+    import torch
+    from brisk_tpu_torch import trace_insert
+    from brisk_tpu_torch.api import Brisk
+    from brisk_tpu_torch.index import flush_graph, pipeline, sklstore
+    from brisk_tpu_torch.io import windows
+    from brisk_tpu_torch.params import Parameters
+    S, lanes = 8, 2048
+    geo = Brisk(Parameters(K, M, B), batch=lanes, window=512, stack=S,
+                device=dev)
+    packer = windows.WindowPacker(K, M, lanes, l_out=geo.window)
+    static = geo._flat_static(packer)
+    stacks = []
+    for fl in packer.pack_flat(geo._records(dep["path"]), S):
+        stacks.append(tuple(torch.from_numpy(x).to(dev) for x in (
+            fl.chunk4, fl.valid_start.reshape(S, lanes),
+            fl.valid_end.reshape(S, lanes))))
+        if len(stacks) == FLUSH_GRAPH_FLUSHES:
+            break
+    check(len(stacks) == FLUSH_GRAPH_FLUSHES,
+          f"the deployment packed {len(stacks)} flushes")
+    nw = sklstore.skl_dims(K, M, B)[3]
+    rows = FLUSH_GRAPH_FLUSHES * S * lanes * geo.skl_row_cap
+    arena = sklstore.empty(1 << rows.bit_length(), 1 << 14, nw, dev)
+    del geo
+    replays0 = graph_replays()
+    runs, wall = {}, {}
+    for name, fn in (("eager", pipeline.insert_flat_sklnative),
+                     ("graph", flush_graph.insert_flat)):
+        skl = sklstore.SklState(*(t.clone() for t in arena))
+        chain = pipeline.zero_chain(dev)
+        outs = []
+        sync(dev)
+        t = time.perf_counter()
+        for st in stacks:
+            out = fn(skl, *st, chain, *static)
+            skl, chain = out[0], out[6]
+            outs.append(out[1:])
+        sync(dev)
+        wall[name] = 1e3 * (time.perf_counter() - t) / len(stacks)
+        runs[name] = (skl, outs)
+
+    def same(a, c) -> bool:
+        if isinstance(a, torch.Tensor):
+            return a.dtype == c.dtype and torch.equal(a, c)
+        return len(a) == len(c) and all(same(x, y) for x, y in zip(a, c))
+
+    (e_skl, e_outs), (g_skl, g_outs) = runs["eager"], runs["graph"]
+    for i, (e, g) in enumerate(zip(e_outs, g_outs)):
+        check(same(e, g), f"flush {i}: the graph's outputs != the eager "
+              "program's")
+    check(same(tuple(e_skl), tuple(g_skl)),
+          "the graph's arena != the eager program's")
+    replays = graph_replays() - replays0
+    check(replays == FLUSH_GRAPH_FLUSHES,
+          f"{replays} graph replays for {FLUSH_GRAPH_FLUSHES} flushes")
+    say("flush-graph", flushes=FLUSH_GRAPH_FLUSHES, equal=True,
+        n_rows=int(g_skl.n_rows), eager_flush_ms=wall["eager"],
+        graph_flush_ms=wall["graph"])
+    del runs, e_skl, g_skl, e_outs, g_outs
+    traced = {}
+    for name, fn in (("flush", flush_graph.insert_flat),
+                     ("flush_eager", pipeline.insert_flat_sklnative)):
+        skl = sklstore.SklState(*(t.clone() for t in arena))
+        _, traced[name] = trace_insert.traced_call(
+            dev, name, lambda: int(fn(skl, *stacks[0],
+                                      pipeline.zero_chain(dev),
+                                      *static)[5]))
+        check(traced[name]["launches"] > 0,
+              f"the traced {name} ran no kernel")
+    g, e = traced["flush"], traced["flush_eager"]
+    say("flush-graph", host_launch_calls_per_flush=g["host_launch_calls"],
+        eager=e["host_launch_calls"], graph_calls=g["host_calls"])
+    say("flush-graph", device_kernels_per_flush=g["launches"],
+        eager=e["launches"], busy_ms=g["busy_ms"], eager_busy_ms=e["busy_ms"],
+        wall_ms=g["wall_ms"], eager_wall_ms=e["wall_ms"])
+    graphs = flush_graph.graphs()
+    say("flush-graph", captures=len(graphs),
+        replays=sum(x["replays"] for x in graphs),
+        captured_launches=[x["captured_launches"] for x in graphs])
+    say("flush-graph", pool_mib=[round(x["pool_bytes"] / 2 ** 20, 1)
+                                 for x in graphs],
+        reserved_gib=torch.cuda.memory_reserved(dev) / 2 ** 30)
+    return dict(graph=g, eager=e, wall=wall)
+
+
 def phase_consolidate(dev, dep: dict) -> dict:
     """Two finalize segments of the same 50 Mb, then consolidate()."""
     idx, path, sample, single = (dep["idx"], dep["path"], dep["sample"],
                                  dep["got"])
     reset_peak(dev)
     reset_launches()
+    replays0 = graph_replays()
     t = time.perf_counter()
     idx.insert_file(path)
     idx.finalize()
     sync(dev)
     insert2_s = time.perf_counter() - t
+    check(graph_replays() > replays0,
+          "the second insert's flushes replayed no graph")
     rows = int(idx.skl.n_rows)
     check(len(idx._skl_segments) == 2,
           f"{len(idx._skl_segments)} segments after the second insert")
@@ -1162,7 +1284,9 @@ def phase_trace(dev, tmp: str) -> dict:
     were neither idle throughout nor never idle."""
     from brisk_tpu_torch import trace_insert
     reset_launches()
+    replays0 = graph_replays()
     rows = trace_insert.trace(dev, os.path.join(tmp, "trace"), **TRACE_SIZE)
+    check(graph_replays() > replays0, "the traced flush replayed no graph")
     n = kernel_launches()
     check([r["span"] for r in rows] == list(trace_insert.SPANS),
           f"trace spans {[r['span'] for r in rows]}")
@@ -1172,6 +1296,7 @@ def phase_trace(dev, tmp: str) -> dict:
               f"{r['device_idle_share']}")
         say("trace", span=r["span"], wall_ms=r["wall_ms"],
             untraced_wall_ms=r["untraced_wall_ms"], launches=r["launches"],
+            host_launch_calls=r["host_launch_calls"],
             busy_ms=r["busy_ms"], device_idle_share=r["device_idle_share"],
             launches_as_torch_ops=LOOP_TRACE_LAUNCHES[r["span"]],
             outside_span=r["outside_span"], attempts=r["attempts"],
@@ -1198,6 +1323,7 @@ def phase_k63_deploy(dev, tmp: str) -> dict:
                 device=dev)
     reset_peak(dev)
     reset_launches()
+    replays0 = graph_replays()
     with timed_state_machine(dev) as loop:
         t0 = time.perf_counter()
         idx.warmup(os.path.getsize(path), record_len_hint=SYNTH_READ,
@@ -1209,6 +1335,8 @@ def phase_k63_deploy(dev, tmp: str) -> dict:
         sync(dev)
         t2 = time.perf_counter()
     rows = int(idx.skl.n_rows)
+    check(graph_replays() > replays0,
+          "the k=63 deployment's flushes replayed no graph")
     n0 = launches()
     idx.finalize()
     sync(dev)
@@ -1312,6 +1440,7 @@ def phase_k63_short(dev, tmp: str) -> dict:
     fasta.BatchPacker.pack = counted_pack
     reset_peak(dev)
     reset_launches()
+    replays0 = graph_replays()
     try:
         with timed_state_machine(dev) as loop:
             t0 = time.perf_counter()
@@ -1330,6 +1459,8 @@ def phase_k63_short(dev, tmp: str) -> dict:
         fasta.BatchPacker.pack = pack
     n = kernel_launches()
     check_enumerated(n, "the k=63 short-read insert")
+    check(graph_replays() > replays0,
+          "the k=63 short-read flushes replayed no graph")
     geo = idx._stream_geometry(read_len)
     insert_s, finalize_s = t2 - t1, t3 - t2
     say("k63-short", warmup_s=round(t1 - t0, 3), insert_s=insert_s,
@@ -1518,6 +1649,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         run("fixtures", phase_fixtures, dev, tmp)
         dep = run("deploy", phase_deployment, dev, tmp)
+        run("flush-graph", phase_flush_graph, dev, dep)
         con = run("consolidate", phase_consolidate, dev, dep)
         dep_launches = dict(launches=dep["launches"],
                             scan_calls=dep["scan_calls"])

@@ -18,7 +18,8 @@ import torch
 
 from brisk_tpu.api import Brisk as JBrisk
 from brisk_tpu.params import Parameters as JParameters
-from brisk_tpu_torch import bench, profile_device, profile_sort, trace_insert
+from brisk_tpu_torch import (bench, profile_device, profile_insert,
+                             profile_sort, trace_insert)
 from brisk_tpu_torch.io import synth
 from brisk_tpu_torch.oracle import pyref
 from tests.make_synth_fasta import write_synth as reference_write_synth
@@ -252,6 +253,39 @@ def test_span_summaries_on_device_events():
         trace_insert.span_summary(events, cuda, "finalize")
 
 
+def test_span_summary_counts_the_hosts_launch_calls():
+    """host_launch_calls counts the span's CUDA API calls (cuda*, cu*)
+    on the CPU timeline that launch a kernel or a graph or copy or set
+    memory (host_calls by name), not other runtime calls, not calls
+    outside the span; launches still counts the device's kernels, one per
+    kernel of a graph replay."""
+    from torch.autograd import DeviceType
+
+    def ev(name, start, end, dev=DeviceType.CPU):
+        return types.SimpleNamespace(
+            name=name, device_type=dev,
+            time_range=types.SimpleNamespace(
+                start=start, end=end, elapsed_us=lambda: end - start))
+
+    events = [ev("flush", 0, 1000),
+              ev("cudaMemcpyAsync", 10, 12), ev("cudaMemcpyAsync", 12, 14),
+              ev("cudaGraphLaunch", 20, 40), ev("cudaLaunchKernel", 50, 52),
+              ev("cuLaunchKernel", 60, 62), ev("cudaMemsetAsync", 70, 71),
+              ev("cudaStreamIsCapturing", 80, 81),
+              ev("cudaEventRecord", 82, 83), ev("aten::clone", 84, 90),
+              ev("cudaLaunchKernel", 1010, 1012)]
+    events += [ev(f"kernel_{i}", 100 + 10 * i, 105 + 10 * i,
+                  DeviceType.CUDA) for i in range(30)]
+    r = trace_insert.span_summary(events, torch.device("cuda", 0), "flush")
+    assert r["host_launch_calls"] == 6
+    assert r["host_calls"] == {"cudaMemcpyAsync": 2, "cudaGraphLaunch": 1,
+                               "cudaLaunchKernel": 1, "cuLaunchKernel": 1,
+                               "cudaMemsetAsync": 1}
+    assert r["launches"] == 30
+    cpu = trace_insert.span_summary(events, torch.device("cpu"), "flush")
+    assert cpu["host_launch_calls"] is None and cpu["host_calls"] is None
+
+
 def test_span_summary_names_the_hand_kernels():
     """hand_kernels sums the launches and device time of the port's own
     kernels by their device functions' names: the join scan's three
@@ -300,7 +334,7 @@ def test_trace_retries_a_session_without_device_activity(monkeypatch,
     size = dict(rec_bases=20_000, query_bases=5_000, batch=16, window=64,
                 stack=2)
     rows = trace_insert.trace(CPU, str(tmp_path), **size)
-    assert [r["attempts"] for r in rows] == [2, 2, 2]
+    assert [r["attempts"] for r in rows] == [2] * len(trace_insert.SPANS)
 
     def lost(run, activities, out_dir):
         raise trace_insert.NoDeviceActivity("lost")
@@ -322,14 +356,39 @@ def test_profiles_on_the_cpu():
     assert all(r["ms"] > 0 for r in rows)
 
 
+def test_profile_insert_on_the_cpu(tmp_path):
+    """profile_insert's flush rows (one per path; on the CPU both run the
+    eager program, so no kernel differs) and its pace row: every turn
+    emits the k-mers a Brisk of the same geometry emits."""
+    from brisk_tpu_torch.api import Brisk
+    from brisk_tpu_torch.params import Parameters
+    geo = dict(batch=16, window=64, stack=2)
+    rows = profile_insert.flush_profile(CPU, rec_bases=20_000, flushes=2,
+                                        **geo)
+    assert [r["path"] for r in rows] == list(profile_insert.PATHS)
+    for r in rows:
+        assert r["steady_flush_ms"] > 0 and r["traced_wall_ms"] > 0
+        assert r["host_launch_calls"] is None
+        assert r["kernels_unlike_other_path"] == {}
+    p = profile_insert.pace(CPU, str(tmp_path), 30_000, **geo)
+    assert p["flushes"] > 0 and p["parse_s"] > 0 and p["pack_flat_s"] > 0
+    assert [len(p["insert_parsed_s"][x]) for x in profile_insert.PATHS] == [
+        2, 2]
+    br = Brisk(Parameters(31, 11, 8), device="cpu", **geo)
+    br.insert_file(bench.synth_path(str(tmp_path), 30_000))
+    br._drain()
+    assert p["n_emitted"] == br.n_emitted > 0
+
+
 @pytest.mark.parametrize("entry", ["bench", "trace_insert", "profile_device",
-                                   "profile_sort"])
+                                   "profile_sort", "profile_insert"])
 def test_entry_points_need_a_card_unless_asked(entry):
     """Without `--device cpu` every entry point runs on the first CUDA
     card, and raises without one."""
     main = dict(bench=bench.main, trace_insert=trace_insert.main,
                 profile_device=profile_device.main,
-                profile_sort=profile_sort.main)[entry]
+                profile_sort=profile_sort.main,
+                profile_insert=profile_insert.main)[entry]
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA card"):

@@ -12,8 +12,9 @@ enumerator's kernels (kernels.state_scan, kernels.rescan) against their
 plain versions, carry in and out, and their wrappers' checks; the run
 scan of the query join and of compact (kernels.join_scan,
 kernels.run_totals) against theirs, called repeatedly at shapes that
-stress their look-back and replayed from a CUDA graph. They skip on a
-machine without a card.
+stress their look-back and replayed from a CUDA graph; the insert
+programs as CUDA graph replays (index.flush_graph) against the eager
+programs, bit for bit. They skip on a machine without a card.
 This file imports no jax; on the card's machine (which has no jax) run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1022,3 +1023,260 @@ def test_run_scan_wrappers_check_inputs(device):
     assert torch.equal(kernels.join_scan(empty, pay[:0]).cpu(),
                        torch.zeros(256, dtype=torch.int64))
     assert kernels.LAUNCHES == before
+
+
+# -- the insert programs as CUDA graph replays (index.flush_graph) --------
+
+@pytest.fixture
+def graphs(device):
+    """The flush graphs' cache, emptied before and after the test."""
+    from brisk_tpu_torch.index import flush_graph
+    flush_graph.clear()
+    yield flush_graph
+    flush_graph.clear()
+    torch.cuda.empty_cache()
+
+
+def _graph_records(seed: int = 11) -> list:
+    """Random records from numpy (one long, several 10 kb and short ones)
+    and the repair fixture's record, whose windows fail their
+    certificate."""
+    import random
+    rng = np.random.default_rng(seed)
+    recs = [rng.integers(0, 4, n, dtype=np.uint8)
+            for n in (60_000, 10_000, 31, 500, 10_000, 45_000)]
+    r = random.Random(5)
+
+    def rs(n):
+        return "".join(r.choice("ACGT") for _ in range(n))
+
+    recs.insert(2, rs(300) + "ACGTTGCA" * 200 + rs(300)
+                + "AAAAAAAAAAAAC" * 80 + rs(300))
+    return recs
+
+
+def _flat_stacks(device, batch=64, window=128, stack=2, n=8):
+    """The first n packed flushes of _graph_records at a Brisk's k=31
+    geometry on the card: ([(chunk4, valid_start, valid_end)], static)."""
+    from brisk_tpu_torch.io import windows
+    geo = Brisk(Parameters(31, 11, 8), batch=batch, window=window,
+                stack=stack, device=device)
+    packer = windows.WindowPacker(31, 11, batch, l_out=geo.window)
+    stacks = []
+    for fl in packer.pack_flat(iter(_graph_records()), stack):
+        stacks.append(tuple(torch.from_numpy(x).to(device) for x in (
+            fl.chunk4, fl.valid_start.reshape(stack, batch),
+            fl.valid_end.reshape(stack, batch))))
+        if len(stacks) == n:
+            break
+    assert len(stacks) == n
+    return stacks, (31, 11, 8, geo.skl_row_cap, packer.l_buf, packer.useful)
+
+
+def _k31_arena(device, static, flushes: int):
+    nw = sklstore.skl_dims(31, 11, 8)[3]
+    rows = flushes * 2 * 64 * static[3]
+    return sklstore.empty(1 << max(14, rows.bit_length()), 1 << 14, nw,
+                          device)
+
+
+def _assert_same_outputs(a, c) -> None:
+    """Two insert-program tuples (or parts) equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        assert a.dtype == c.dtype and torch.equal(a, c)
+    else:
+        assert len(a) == len(c)
+        for x, y in zip(a, c):
+            _assert_same_outputs(x, y)
+
+
+def test_flush_graph_matches_eager_over_many_pending_flushes(device,
+                                                             graphs):
+    """Eight k=31 flushes through the graph runner against the eager
+    program on the same inputs, the chain carried: every flush's flags,
+    end states, counts, n_rows and chain are held until all eight have
+    run (more than Brisk._pending's depth of 4, so outputs that a later
+    replay overwrote would show), then compared bit for bit, as are the
+    arenas' whole columns. One capture, seven replays after it; some
+    lanes fail their certificate."""
+    from brisk_tpu_torch.index import pipeline
+    stacks, static = _flat_stacks(device)
+    eager_skl = _k31_arena(device, static, len(stacks))
+    graph_skl = sklstore.SklState(*(t.clone() for t in eager_skl))
+    e_chain = g_chain = pipeline.zero_chain(device)
+    eager, graph = [], []
+    for st in stacks:
+        e = pipeline.insert_flat_sklnative(eager_skl, *st, e_chain, *static)
+        g = graphs.insert_flat(graph_skl, *st, g_chain, *static)
+        eager_skl, e_chain, graph_skl, g_chain = e[0], e[6], g[0], g[6]
+        eager.append(e[1:])
+        graph.append(g[1:])
+    torch.cuda.synchronize()
+    for e, g in zip(eager, graph):
+        _assert_same_outputs(e, g)
+    _assert_same_outputs(tuple(eager_skl), tuple(graph_skl))
+    assert any(bool(((e[2] & 1) == 0).any()) for e in eager)
+    (info,) = graphs.graphs()
+    assert info["program"] == "flat" and info["replays"] == len(stacks)
+    assert info["pool_bytes"] > 0
+
+
+def test_flush_graph_after_the_arena_grows(device, graphs):
+    """A flush after ensure_room has grown the arena (new column tensors)
+    replays the same graph, and the grown arena equals the eager
+    program's after the same growth."""
+    from brisk_tpu_torch.index import pipeline
+    stacks, static = _flat_stacks(device, n=3)
+    eager_skl = _k31_arena(device, static, 1)
+    graph_skl = sklstore.SklState(*(t.clone() for t in eager_skl))
+    e_chain = g_chain = pipeline.zero_chain(device)
+    rcap = eager_skl.bucket.shape[0]
+    for i, st in enumerate(stacks):
+        if i:
+            need = rcap  # doubles the capacity
+            eager_skl = sklstore.ensure_room(eager_skl, need)
+            graph_skl = sklstore.ensure_room(graph_skl, need)
+        e = pipeline.insert_flat_sklnative(eager_skl, *st, e_chain, *static)
+        g = graphs.insert_flat(graph_skl, *st, g_chain, *static)
+        _assert_same_outputs(e, g)
+        eager_skl, e_chain, graph_skl, g_chain = e[0], e[6], g[0], g[6]
+    assert graph_skl.bucket.shape[0] > rcap
+    (info,) = graphs.graphs()
+    assert info["replays"] == len(stacks)
+
+
+def test_flush_graph_shared_by_a_brisk_and_its_query_shadow(device,
+                                                            graphs,
+                                                            tmp_path):
+    """Two Brisk objects of one geometry share one graph: the index and
+    query_file's shadow (whose flushes replay it, no new capture); the
+    index and the query total equal the CPU port's."""
+    from brisk_tpu_torch import bench
+    path = bench.synth_path(str(tmp_path), 60_000)
+    geo = dict(batch=64, window=128, stack=2)
+    cpu = Brisk(Parameters(31, 11, 8), device="cpu", **geo)
+    card = Brisk(Parameters(31, 11, 8), device=device, **geo)
+    for br in (cpu, card):
+        br.insert_file(path)
+        br._drain()
+    _assert_rows_equal(_rows(cpu.skl), _rows(card.skl))
+    (before,) = graphs.graphs()
+    total = card.query_file(path)
+    (after,) = graphs.graphs()
+    assert after["replays"] == 2 * before["replays"] > 0
+    assert total == cpu.query_file(path) > 0
+    assert card.n_emitted == cpu.n_emitted
+
+
+def test_flush_graph_stream_k63_matches_eager(device, graphs):
+    """The k=63 streaming program through its graph against the eager
+    program, carry carried over four flushes: every output and the arena,
+    bit for bit, all outputs held to the end."""
+    from brisk_tpu_torch.io import fasta
+    from brisk_tpu_torch.index import pipeline
+    from brisk_tpu_torch.ops import enumerate as enum_ops
+    k, m, b = 63, 21, 14
+    B, l_new, S = 32, 256, 2
+    packer = fasta.BatchPacker(k, B, l_new)
+    batches = list(packer.pack(iter(_graph_records())))
+    flushes = []
+    for i in range(0, 4 * S, S):
+        flushes.append(tuple(torch.from_numpy(np.stack(
+            [getattr(bt, f) for bt in batches[i:i + S]])).to(device)
+            for f in ("codes", "fresh", "valid_end")))
+    nw = sklstore.skl_dims(k, m, b)[3]
+    eager_skl = sklstore.empty(1 << 17, 1 << 14, nw, device)
+    graph_skl = sklstore.SklState(*(t.clone() for t in eager_skl))
+    e_carry = g_carry = enum_ops.zero_carry(B, device)
+    eager, graph = [], []
+    for fl in flushes:
+        e = pipeline.insert_stream_sklnative(eager_skl, *fl, e_carry, k, m,
+                                             b, l_new)
+        g = graphs.insert_stream(graph_skl, *fl, g_carry, k, m, b, l_new)
+        eager_skl, e_carry, graph_skl, g_carry = e[0], e[3], g[0], g[3]
+        eager.append(e[1:])
+        graph.append(g[1:])
+    for e, g in zip(eager, graph):
+        _assert_same_outputs(e, g)
+    _assert_same_outputs(tuple(eager_skl), tuple(graph_skl))
+    assert int(graph_skl.n_rows) > 0
+    (info,) = graphs.graphs()
+    assert info["program"] == "stream" and info["replays"] == len(flushes)
+
+
+def test_flush_graph_repair_fixture(device, graphs, tmp_path):
+    """The repair fixture (batch 16, window 64) through the graph: its
+    lanes that fail their certificate are repaired from the cloned flags
+    and end states, an overflowing lane re-runs, and the arena, counters
+    and the query total (199,764) equal the CPU port's."""
+    import random
+    r = random.Random(5)
+
+    def rs(n):
+        return "".join(r.choice("ACGT") for _ in range(n))
+
+    path = tmp_path / "repair.fa"
+    path.write_text(">repair\n" + rs(300) + "ACGTTGCA" * 200 + rs(300)
+                    + "AAAAAAAAAAAAC" * 80 + rs(300) + "\n")
+    built = []
+    for dev in ("cpu", device):
+        br = Brisk(Parameters(31, 11, 8), batch=16, window=64, device=dev)
+        br.insert_file(str(path))
+        br._drain()
+        built.append((br, _rows(br.skl)))
+    (cpu, cpu_rows), (card, card_rows) = built
+    _assert_rows_equal(cpu_rows, card_rows)
+    for name in ("n_emitted", "n_superkmers", "n_repaired_windows",
+                 "n_repair_batches", "n_skl_overflows"):
+        assert getattr(card, name) == getattr(cpu, name), name
+    assert (card.n_emitted, card.n_repaired_windows,
+            card.n_skl_overflows) == (3510, 30, 1)
+    assert card.query_file(str(path)) == 199_764
+    assert graphs.graphs()[0]["replays"] > 0
+
+
+def test_flush_graph_launches_equal_the_eager_programs(device, graphs):
+    """kernels.LAUNCHES over N replays (after the capture) equals its
+    count over N eager flushes of the same inputs: each replay adds the
+    launches its capture recorded."""
+    from brisk_tpu_torch.index import pipeline
+    stacks, static = _flat_stacks(device, n=4)
+    skl = _k31_arena(device, static, 2 * len(stacks))
+    chain = pipeline.zero_chain(device)
+    graphs.insert_flat(skl, *stacks[0], chain, *static)  # the capture
+    counted = []
+    for run in (pipeline.insert_flat_sklnative, graphs.insert_flat):
+        before = dict(kernels.LAUNCHES)
+        ch = chain
+        for st in stacks:
+            out = run(skl, *st, ch, *static)
+            skl, ch = out[0], out[6]
+        counted.append(kernels.launch_delta(before, kernels.LAUNCHES))
+    eager, graph = counted
+    assert graph == eager
+    for name in ("positions", "rescan", "state_scan", "emit", "skl_rows"):
+        assert eager[name] >= len(stacks), name
+
+
+def test_flush_graph_failed_capture_raises(device, graphs, monkeypatch):
+    """A body that reads the host while capturing (a synchronize) fails
+    its capture: insert_flat raises, caches no graph and does not run the
+    flush eagerly instead."""
+    from brisk_tpu_torch.index import pipeline
+    stacks, static = _flat_stacks(device, n=1)
+    prog = graphs.PROGRAMS["flat"]
+
+    def reads_the_host(*args):
+        out = pipeline.flat_flush_body(*args)
+        torch.cuda.synchronize()
+        return out
+
+    monkeypatch.setitem(graphs.PROGRAMS, "flat",
+                        prog._replace(body=reads_the_host))
+    skl = _k31_arena(device, static, 1)
+    with pytest.raises(RuntimeError):
+        graphs.insert_flat(skl, *stacks[0], pipeline.zero_chain(device),
+                           *static)
+    assert graphs.graphs() == []
+    assert int(skl.n_rows) == 0
+    torch.cuda.synchronize()
