@@ -21,7 +21,8 @@ import torch
 
 from brisk_tpu_torch._u32 import M32, from_np, to_np
 from brisk_tpu_torch.api import _device, end_states
-from brisk_tpu_torch.index import payload, pipeline, readout, store
+from brisk_tpu_torch.index import (flush_graph, payload, pipeline,
+                                   readout, store)
 from brisk_tpu_torch.io import fasta, windows
 from brisk_tpu_torch.oracle import pyref
 from brisk_tpu_torch.ops import enumerate as enum_ops
@@ -38,8 +39,11 @@ class BriskData:
     insert_file runs the windowed sequence-parallel pipeline of the
     counter (pipeline.insert_windows_payload) with the window-continuity
     chain and batched exact repairs; file-path lanes are (count, record
-    position). insert_sequence also accepts arbitrary per-position
-    extras."""
+    position). On a CUDA device each flush is one CUDA graph replay of
+    that program (flush_graph.insert_payload; the graph captured at the
+    geometry's first flush, shared by every BriskData of it); the rare
+    repairs run eagerly. insert_sequence also accepts arbitrary
+    per-position extras."""
 
     def __init__(self, params: Parameters, width: int = 2,
                  kinds: Tuple[str, ...] = None, batch: int = 512,
@@ -149,8 +153,9 @@ class BriskData:
             self.compact()
         self.state = payload.ensure_room(self.state, raw)
 
-    def _flush(self, packer, batches) -> None:
-        p = self.params
+    def _stage(self, packer, batches) -> tuple:
+        """A stack's inputs of insert_windows_payload on the device:
+        (codes (S, B, L_buf) unpacked, valid_start, valid_end, pos0)."""
         S, B, dev = len(batches), self.batch, self.device
         codes4 = torch.from_numpy(np.stack([bt.codes4 for bt in batches])
                                   ).to(dev)
@@ -160,15 +165,19 @@ class BriskData:
         def stacked(arrays):
             return torch.from_numpy(np.stack(arrays)).to(dev)
 
-        vs = stacked([bt.valid_start for bt in batches])
-        ve = stacked([bt.valid_end for bt in batches])
-        pos0 = stacked([bt.win.astype(np.int64) * packer.useful
-                        for bt in batches])
+        return (codes, stacked([bt.valid_start for bt in batches]),
+                stacked([bt.valid_end for bt in batches]),
+                stacked([bt.win.astype(np.int64) * packer.useful
+                         for bt in batches]))
+
+    def _flush(self, packer, batches) -> None:
+        p = self.params
+        S, B = len(batches), self.batch
+        staged = self._stage(packer, batches)
         self._room_for(S * B * packer.l_out)
         (self.state, n_km, cert, ends,
-         self._chain) = pipeline.insert_windows_payload(
-            self.state, codes, vs, ve, pos0, self._chain,
-            p.k, p.m, p.b, self.width)
+         self._chain) = flush_graph.insert_payload(
+            self.state, *staged, self._chain, p.k, p.m, p.b, self.width)
         host = torch.cat([cert.reshape(-1).to(torch.int64),
                           n_km.reshape(1)]).cpu().numpy()
         self.n_emitted += int(host[-1])

@@ -93,6 +93,23 @@ def append(state: PayloadState, keys: torch.Tensor, values: torch.Tensor,
     return state._replace(n_used=n0 + n)
 
 
+def append_masked(state: PayloadState, keys: torch.Tensor,
+                  lanes: torch.Tensor) -> PayloadState:
+    """append of columns already tombstoned (an invalid column holds
+    INVALID keys and zero lanes): (W, N) keys and (D, N) lanes, int32,
+    written at n_used with two slice copies, in place; n_used advances
+    by N. Raises when the log has no room, as append does."""
+    n0, n = state.n_used, keys.shape[1]
+    cap = state.keys.shape[1]
+    if n0 + n > cap:
+        raise ValueError(f"payload.append_masked: {n} columns at offset "
+                         f"{n0} overflow capacity {cap} (ensure_room "
+                         f"first)")
+    state.keys[:, n0:n0 + n] = keys
+    state.data[:, n0:n0 + n] = lanes
+    return state._replace(n_used=n0 + n)
+
+
 def compact(state: PayloadState, kinds: Tuple[str, ...]) -> PayloadState:
     """Global sort + duplicate merge: the used columns become one sorted
     run of distinct keys (the rest INVALID with zero lanes), each lane

@@ -20,7 +20,9 @@ dispatch.
 
 Generic payloads: insert_windows_payload runs the windowed enumeration
 and certificate into an index.payload state, one (count, position)
-column per emission.
+column per emission: payload_flush_body (the S batches' tombstoned key
+and lane columns) followed by one payload.append_masked, which
+flush_graph captures and replays the same way.
 """
 
 from typing import NamedTuple, Tuple
@@ -252,6 +254,45 @@ def insert_stream_sklnative(skl, codes: torch.Tensor, fresh: torch.Tensor,
     return skl, n_sk, n_km, carry, skl.n_rows.clone()
 
 
+def payload_flush_body(codes: torch.Tensor, valid_start: torch.Tensor,
+                       valid_end: torch.Tensor, pos0: torch.Tensor, chain,
+                       k: int, m: int, b: int, width: int):
+    """Everything insert_windows_payload does but touch the state:
+    S x (enumerate_batch, _chain_exact, store.make_keys, the lanes).
+    Returns (keys (W, S*N) int32, lanes (width, S*N) int32, n_km, cert
+    (S, B) bool, ends (MinimizerState of (S, B) leaves), chain'), N =
+    B * (L_buf - k + 1): batch i's columns at [i*N, (i+1)*N), already
+    tombstoned (an invalid column holds INVALID in every key word and 0
+    in every lane). A pure function of its inputs: flush_graph captures
+    it."""
+    S, B, L_buf = codes.shape
+    margin = k - 1
+    dev = codes.device
+    fresh = torch.ones(B, dtype=torch.bool, device=dev)
+    zero = enum_ops.zero_carry(B, dev)
+    rel = torch.arange(L_buf - margin, device=dev)[None, :]
+    n_km = torch.zeros((), dtype=torch.int64, device=dev)
+    keys, lanes, certs, ends = [], [], [], []
+    for i in range(S):
+        vs_i = valid_start[i]
+        em, end = enum_ops.enumerate_batch(codes[i], fresh, valid_end[i],
+                                           zero, k, m, b, valid_start=vs_i)
+        exact, chain = _chain_exact(em, end, vs_i, chain, margin)
+        rows = store.make_keys(em.bucket.reshape(-1), em.key.reshape(4, -1),
+                               em.mini_idx.reshape(-1), k, b)
+        valid = (em.valid & exact[:, None]).reshape(-1)
+        pos = ((pos0[i].to(torch.int64)[:, None] + rel) & M32).reshape(-1)
+        vals = torch.stack([torch.ones_like(pos)] + [pos] * (width - 1))
+        keys.append(torch.where(valid[None, :], to_i32(rows), -1))
+        lanes.append(torch.where(valid[None, :], to_i32(vals), 0))
+        n_km = n_km + valid.sum()
+        certs.append(exact)
+        ends.append(end)
+    ends = MinimizerState(*(torch.stack(f) for f in zip(*ends)))
+    return (torch.cat(keys, dim=1), torch.cat(lanes, dim=1), n_km,
+            torch.stack(certs), ends, chain)
+
+
 def insert_windows_payload(state, codes: torch.Tensor,
                            valid_start: torch.Tensor,
                            valid_end: torch.Tensor, pos0: torch.Tensor,
@@ -264,30 +305,13 @@ def insert_windows_payload(state, codes: torch.Tensor,
     codes (S, B, L_buf) unpacked 2-bit codes; valid_start, valid_end and
     pos0 (S, B), pos0 each window's first k-mer index within its record
     (win * useful). The same window-continuity chain as the sklnative
-    insert. Returns (state', n_km, cert (S, B) bool, ends (MinimizerState
-    of (S, B) leaves), chain'). Precondition: state.n_used + S*B*(L_buf -
-    k + 1) <= capacity."""
-    S, B, L_buf = codes.shape
-    margin = k - 1
-    dev = codes.device
-    fresh = torch.ones(B, dtype=torch.bool, device=dev)
-    zero = enum_ops.zero_carry(B, dev)
-    rel = torch.arange(L_buf - margin, device=dev)[None, :]
-    n_km = torch.zeros((), dtype=torch.int64, device=dev)
-    certs, ends = [], []
-    for i in range(S):
-        vs_i = valid_start[i]
-        em, end = enum_ops.enumerate_batch(codes[i], fresh, valid_end[i],
-                                           zero, k, m, b, valid_start=vs_i)
-        exact, chain = _chain_exact(em, end, vs_i, chain, margin)
-        rows = store.make_keys(em.bucket.reshape(-1), em.key.reshape(4, -1),
-                               em.mini_idx.reshape(-1), k, b)
-        valid = (em.valid & exact[:, None]).reshape(-1)
-        pos = ((pos0[i].to(torch.int64)[:, None] + rel) & M32).reshape(-1)
-        vals = torch.stack([torch.ones_like(pos)] + [pos] * (width - 1))
-        state = payload.append(state, rows, vals, valid)
-        n_km = n_km + valid.sum()
-        certs.append(exact)
-        ends.append(end)
-    ends = MinimizerState(*(torch.stack(f) for f in zip(*ends)))
-    return state, n_km, torch.stack(certs), ends, chain
+    insert. payload_flush_body, then one payload.append_masked of its S*N
+    columns at n_used (the same columns as S appends of N in batch
+    order: each advances n_used by N, tombstones included). Returns
+    (state', n_km, cert (S, B) bool, ends (MinimizerState of (S, B)
+    leaves), chain'). Precondition: state.n_used + S*B*(L_buf - k + 1)
+    <= capacity. On the card, flush_graph.insert_payload runs the same
+    program as one CUDA graph replay."""
+    keys, lanes, n_km, cert, ends, chain = payload_flush_body(
+        codes, valid_start, valid_end, pos0, chain, k, m, b, width)
+    return payload.append_masked(state, keys, lanes), n_km, cert, ends, chain

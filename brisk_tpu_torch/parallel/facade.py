@@ -15,7 +15,14 @@ overlapping windows (io.windows) across ALL lanes, a stack of S window
 batches runs through sharded.sharded_insert_windows_sklonly, and the
 rare uncertified windows are re-run exactly through the streaming carry
 path and delivered to the shards through a host-built row buffer
-(sharded.sharded_append_skl_rows). At k > 32 the truncation quirk starves
+(sharded.sharded_append_skl_rows). In one process on a CUDA card each
+step is one CUDA graph replay of that program
+(flush_graph.insert_sharded: the step's body captured at the geometry's
+first flush, the arenas' appends after it); the repairs run eagerly.
+Across processes the step runs eagerly: its collectives go through
+torch.distributed (the cross-shard chain's gathers, all_to_all_single,
+all_reduce), which the graph runner does not capture, since NCCL across
+several cards has never run. At k > 32 the truncation quirk starves
 the certificate and the batched repairs keep counts exact.
 
 Capacity contracts are HOST-enforced: appends consume a fixed number of
@@ -31,7 +38,8 @@ import numpy as np
 import torch
 
 from brisk_tpu_torch import _u32
-from brisk_tpu_torch.index import pipeline, readout, sklstore, store
+from brisk_tpu_torch.index import (flush_graph, pipeline, readout, sklstore,
+                                   store)
 from brisk_tpu_torch.io import fasta, windows
 from brisk_tpu_torch.oracle import pyref
 from brisk_tpu_torch.ops import enumerate as enum_ops
@@ -201,23 +209,29 @@ class ShardedBrisk:
             self._flush_stack(packer, [empty_batch() for _ in range(S)])
             n_flushed += 1
 
+    def _stage(self, batches) -> tuple:
+        """A stack's inputs of the sharded step on the device: (codes (S,
+        B, L_buf), valid_start, valid_end)."""
+        return tuple(torch.from_numpy(np.stack([getattr(bt, f)
+                                                for bt in batches])
+                                      ).to(self.device)
+                     for f in ("codes", "valid_start", "valid_end"))
+
     def _flush_stack(self, packer, batches) -> None:
         p = self.params
         S = len(batches)
         B = self.my_lanes
-        dev = self.device
-
-        def stacked(arrays):
-            return torch.from_numpy(np.stack(arrays)).to(dev)
-
         per_flush = S * (self.n_shards * self.skl_route_cap
                          + self.B_local * self.skl_row_cap)
         self._ensure_skl_room(per_flush)
+        # one graph replay a step on a one-process mesh on the card; a
+        # mesh of several processes runs the eager program (its
+        # collectives are not captured)
+        step = (flush_graph.insert_sharded if self.mesh.group is None
+                else sharded.sharded_insert_windows_sklonly)
         (self.skl, n_sk, n_km, n_sp, cert, ends, ovf,
-         self._chain) = sharded.sharded_insert_windows_sklonly(
-            self.skl, stacked([bt.codes for bt in batches]),
-            stacked([bt.valid_start for bt in batches]),
-            stacked([bt.valid_end for bt in batches]), self._chain,
+         self._chain) = step(
+            self.skl, *self._stage(batches), self._chain,
             p.k, p.m, p.b, self.mesh, self.skl_row_cap,
             self.skl_route_cap)
         self._skl_rows_ub += per_flush

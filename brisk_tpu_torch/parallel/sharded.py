@@ -61,8 +61,12 @@ def _route_local(rows: torch.Tensor, bucket: torch.Tensor,
     n_local, W, N = rows.shape
     dev = rows.device
     dest = torch.where(valid, to_u32(bucket) % n_shards, n_shards)
-    onehot = dest[..., None] == torch.arange(n_shards + 1, device=dev)
-    rank = torch.gather(onehot.cumsum(1), 2, dest[..., None])[..., 0] - 1
+    # (n_local, n_shards + 1, N): the row axis innermost, so the running
+    # count is a scan along contiguous rows (a scan over an outer axis
+    # runs one thread a column on the card)
+    onehot = dest[:, None, :] == torch.arange(n_shards + 1,
+                                              device=dev)[:, None]
+    rank = torch.gather(onehot.cumsum(2), 1, dest[:, None, :])[:, 0] - 1
     ok = valid & (rank < cap)
     flat = torch.where(ok, dest * cap + rank, n_shards * cap)
     fill = -1 if rows.dtype == torch.int32 else INVALID
@@ -111,54 +115,71 @@ def _chain_exact_sharded(em, end: MinimizerState, vs_i: torch.Tensor, chain,
     return exact, (end_last, carry)
 
 
-def _append_live_first(skl: sklstore.SklState, rec: torch.Tensor
-                       ) -> sklstore.SklState:
-    """Dense-append each local shard's row block rec (n_local, 2+nw, n)
-    int32 (bucket | meta | nucs words; dead rows have an INVALID bucket)
-    in place: a stable live-first sort, the whole block written at the
-    shard's n_rows, n_rows advanced by its live rows only
-    (sklstore.append_n per shard). Caller guarantees n_rows + n <= rcap
-    on every shard."""
-    n_local, WR, n = rec.shape
-    dev = rec.device
+def _live_first(rec: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each local shard's row block rec (n_local, 2+nw, n) int32 (bucket
+    | meta | nucs words; dead rows have an INVALID bucket) with its live
+    rows first in block order (a stable sort), and each shard's live
+    count (n_local,)."""
+    WR, n = rec.shape[1], rec.shape[2]
     live = rec[:, 0] != -1
-    order = torch.where(live, torch.arange(n, device=dev), INVALID)
+    order = torch.where(live, torch.arange(n, device=rec.device), INVALID)
     perm = torch.sort(order, dim=1, stable=True).indices
-    srt = torch.gather(rec, 2, perm[:, None, :].expand(-1, WR, -1))
-    idx = skl.n_rows[:, None] + torch.arange(n, device=dev)
+    return (torch.gather(rec, 2, perm[:, None, :].expand(-1, WR, -1)),
+            live.sum(1))
+
+
+def _append_sorted(skl: sklstore.SklState, srt: torch.Tensor,
+                   n_live: torch.Tensor) -> sklstore.SklState:
+    """Write each local shard's live-first block srt (n_local, 2+nw, n)
+    whole at the shard's n_rows, in place, and advance n_rows by its live
+    count n_live (n_local,), so the next block overwrites the dead tail.
+    Caller guarantees n_rows + n <= rcap on every shard."""
+    WR, n = srt.shape[1], srt.shape[2]
+    idx = skl.n_rows[:, None] + torch.arange(n, device=srt.device)
     skl.bucket.scatter_(1, idx, srt[:, 0])
     skl.meta.scatter_(1, idx, srt[:, 1])
     skl.nucs.scatter_(2, idx[:, None, :].expand(-1, WR - 2, -1), srt[:, 2:])
-    return skl._replace(n_rows=skl.n_rows + live.sum(1))
+    return skl._replace(n_rows=skl.n_rows + n_live)
 
 
-def sharded_insert_windows_sklonly(skl: sklstore.SklState,
-                                   codes: torch.Tensor,
-                                   valid_start: torch.Tensor,
-                                   valid_end: torch.Tensor,
-                                   chain, k: int, m: int, b: int,
-                                   mesh: Mesh, row_cap: int,
-                                   skl_route_cap: int):
-    """THE sharded insert program: a stack of window batches (io.windows)
-    into the per-shard arenas. codes (S, B, L_buf) 2-bit codes of this
-    process's B = n_local*B_local lanes; valid_start, valid_end (S, B).
-    Per step: enumerate every local lane, certify (the cross-shard
-    equality chain), segment into super-k-mer rows, route rows to their
-    owner shard and exchange them, lay each shard's block out as
-    [received rows in source order, then its own spilled rows], then a
-    live-first stable sort and a dense append.
+def _append_live_first(skl: sklstore.SklState, rec: torch.Tensor
+                       ) -> sklstore.SklState:
+    """Dense-append each local shard's row block rec (n_local, 2+nw, n)
+    int32 in place: _live_first, then _append_sorted."""
+    return _append_sorted(skl, *_live_first(rec))
 
-    Returns (skl', n_sk, n_km, n_spilled_rows (global sums, device
-    scalars), cert (S, B) bool, ends (MinimizerState of (S, B) leaves),
-    skl_overflow (S, B) bool, chain'). Capacity contract: per shard and
-    per step the arena absorbs <= n_shards*skl_route_cap +
-    B_local*row_cap rows."""
+
+def append_blocks(skl: sklstore.SklState, blocks: torch.Tensor,
+                  n_live: torch.Tensor) -> sklstore.SklState:
+    """Append a step's S live-first blocks (S, n_local, 2+nw, n) with
+    their live counts (S, n_local) in step order, one _append_sorted
+    each. Caller guarantees n_rows + S*n <= rcap on every shard."""
+    for i in range(blocks.shape[0]):
+        skl = _append_sorted(skl, blocks[i], n_live[i])
+    return skl
+
+
+def sharded_flush_body(codes: torch.Tensor, valid_start: torch.Tensor,
+                       valid_end: torch.Tensor, chain, k: int, m: int,
+                       b: int, mesh: Mesh, row_cap: int,
+                       skl_route_cap: int):
+    """Everything sharded_insert_windows_sklonly does but touch the
+    arenas: per step, enumerate every local lane, certify (the
+    cross-shard equality chain), segment into super-k-mer rows, route
+    rows to their owner shard and exchange them, lay each shard's block
+    out as [received rows in source order, then its own spilled rows]
+    and sort it live-first. Returns (blocks (S, n_local, 2+nw, n)
+    int32, n_live (S, n_local), n_sk, n_km, n_spilled_rows (global sums,
+    device scalars), cert (S, B) bool, ends (MinimizerState of (S, B)
+    leaves), skl_overflow (S, B) bool, chain'), n = n_shards *
+    skl_route_cap + B_local * row_cap. On a one-process mesh a pure
+    function of its inputs: flush_graph captures it."""
     S, B, L_buf = codes.shape
     n_shards, n_local = mesh.n_shards, mesh.n_local
     R = (B // n_local) * row_cap
     margin = k - 1
     dev = codes.device
-    nw = skl.nucs.shape[1]
+    nw = sklstore.skl_dims(k, m, b)[3]
     fresh = torch.ones(B, dtype=torch.bool, device=dev)
     zero = enum_ops.zero_carry(B, dev)
     pos_out = torch.arange(margin, L_buf, device=dev)[None, :]
@@ -167,7 +188,7 @@ def sharded_insert_windows_sklonly(skl: sklstore.SklState,
     n_sk = torch.zeros((), dtype=torch.int64, device=dev)
     n_km = torch.zeros((), dtype=torch.int64, device=dev)
     n_sp = torch.zeros((), dtype=torch.int64, device=dev)
-    certs, ends, ovfs = [], [], []
+    blocks, lives, certs, ends, ovfs = [], [], [], [], []
     for i in range(S):
         vs_i, ve_i = valid_start[i], valid_end[i]
         em, end = enum_ops.enumerate_batch(codes[i], fresh, ve_i, zero,
@@ -189,7 +210,9 @@ def sharded_insert_windows_sklonly(skl: sklstore.SklState,
         rcv = multihost.exchange(buf, mesh).transpose(1, 2)
         spilled = live & ~routed
         spill_rows = torch.where(spilled[:, None, :], rowrec, spill_fill)
-        skl = _append_live_first(skl, torch.cat([rcv, spill_rows], dim=2))
+        srt, n_live = _live_first(torch.cat([rcv, spill_rows], dim=2))
+        blocks.append(srt)
+        lives.append(n_live)
         n_sk = n_sk + (em.boundary & ok2).sum()
         n_km = n_km + ok2.sum()
         n_sp = n_sp + spilled.sum()
@@ -197,9 +220,35 @@ def sharded_insert_windows_sklonly(skl: sklstore.SklState,
         ends.append(end)
         ovfs.append(ovf)
     ends = MinimizerState(*(torch.stack(f) for f in zip(*ends)))
-    return (skl, multihost.psum(n_sk, mesh), multihost.psum(n_km, mesh),
+    return (torch.stack(blocks), torch.stack(lives),
+            multihost.psum(n_sk, mesh), multihost.psum(n_km, mesh),
             multihost.psum(n_sp, mesh), torch.stack(certs), ends,
             torch.stack(ovfs), chain)
+
+
+def sharded_insert_windows_sklonly(skl: sklstore.SklState,
+                                   codes: torch.Tensor,
+                                   valid_start: torch.Tensor,
+                                   valid_end: torch.Tensor,
+                                   chain, k: int, m: int, b: int,
+                                   mesh: Mesh, row_cap: int,
+                                   skl_route_cap: int):
+    """THE sharded insert program: a stack of window batches (io.windows)
+    into the per-shard arenas. codes (S, B, L_buf) 2-bit codes of this
+    process's B = n_local*B_local lanes; valid_start, valid_end (S, B).
+    sharded_flush_body, then append_blocks: each step's live-first block
+    written at each shard's n_rows, in step order.
+
+    Returns (skl', n_sk, n_km, n_spilled_rows (global sums, device
+    scalars), cert (S, B) bool, ends (MinimizerState of (S, B) leaves),
+    skl_overflow (S, B) bool, chain'). Capacity contract: per shard and
+    per step the arena absorbs <= n_shards*skl_route_cap +
+    B_local*row_cap rows. On the card, flush_graph.insert_sharded runs
+    the same program as one CUDA graph replay on a one-process mesh."""
+    blocks, n_live, *rest = sharded_flush_body(
+        codes, valid_start, valid_end, chain, k, m, b, mesh, row_cap,
+        skl_route_cap)
+    return (append_blocks(skl, blocks, n_live), *rest)
 
 
 def sharded_append_skl_rows(skl: sklstore.SklState, buf: torch.Tensor,

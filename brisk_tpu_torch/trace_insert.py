@@ -52,6 +52,20 @@ untraced, then traced in a session of its own: one more JSON line, span
 span whose session recorded no device activity is traced again (the
 whole pass, up to 3 attempts, counted in `attempts`); if it never does,
 the run raises instead of passing a CPU trace off as a device trace.
+
+`--inserts` (with `--deploy-bases N`) also traces the two other insert
+programs on that input's first flush, from a zero chain into a fresh
+state (trace_inserts; warmed, timed untraced, traced): `payload_flush`
+and `payload_flush_eager` (BriskData's flush, width 2 ("sum", "max"),
+B 2048, W 512, S 8: flush_graph.insert_payload, one graph replay, and
+pipeline.insert_windows_payload), `sharded_step` and
+`sharded_step_eager` (ShardedBrisk's step, 8 shards x 256 lanes, W 512,
+S 8, one process: flush_graph.insert_sharded and
+sharded.sharded_insert_windows_sklonly); then for each of the two
+indexes where a warm insert_file of the input goes (insert_breakdown:
+parse, WindowPacker.pack, flushes, read-backs, compactions, the rest)
+and its insert_file with its flushes through the graph and the eager
+program in turns (insert_turns).
 """
 
 import argparse
@@ -358,6 +372,278 @@ def traced_call(dev: torch.device, name: str, fn, out_dir: str = None,
                      wall_ms=wall_ms)
 
 
+# -- the payload insert and the sharded step ------------------------------
+
+INSERT_SPANS = ("payload_flush", "payload_flush_eager", "sharded_step",
+                "sharded_step_eager")
+# the deployments' geometries: BriskData (count, last position) and
+# ShardedBrisk, 8 shards on one device, at the counter's lanes and window
+PAYLOAD_GEOMETRY = dict(width=2, kinds=("sum", "max"), batch=2048,
+                        window=512, stack=8)
+SHARDED_GEOMETRY = dict(n_devices=8, batch_per_shard=256, window=512,
+                        stack=8)
+
+
+def _parsed(path: str):
+    """path's records as the inserts read them (native uint8 codes, or
+    ACGT strings from the Python parser)."""
+    from brisk_tpu_torch import native
+    from brisk_tpu_torch.oracle import pyref
+    recs = native.parse_fasta_codes(path)
+    return list(recs) if recs is not None else list(
+        pyref.read_fasta_chunks(path))
+
+
+def _first_stacks(packer, path: str, stack: int, n: int, stage) -> list:
+    """stage(batches) of the first n stacks of `stack` window batches
+    that packer packs from path; raises when path has fewer."""
+    stacks, pending = [], []
+    for bt in packer.pack(iter(_parsed(path))):
+        pending.append(bt)
+        if len(pending) == stack:
+            stacks.append(stage(pending))
+            pending = []
+            if len(stacks) == n:
+                return stacks
+    raise ValueError(f"{path} packs {len(stacks)} full flushes, not {n}")
+
+
+def payload_stacks(dev: torch.device, path: str, n: int, k: int = 31,
+                   m: int = 11, b: int = 8, **geo) -> tuple:
+    """The first n flushes of path as BriskData stages them on dev
+    (PAYLOAD_GEOMETRY unless given): (the BriskData, [(codes,
+    valid_start, valid_end, pos0)], static (k, m, b, width), columns a
+    flush appends)."""
+    from brisk_tpu_torch.data_api import BriskData
+    from brisk_tpu_torch.io import windows
+    from brisk_tpu_torch.params import Parameters
+    bd = BriskData(Parameters(k, m, b), device=dev,
+                   **dict(PAYLOAD_GEOMETRY, **geo))
+    packer = windows.WindowPacker(k, m, bd.batch, l_out=bd.window)
+    stacks = _first_stacks(packer, path, bd.stack, n,
+                           lambda st: bd._stage(packer, st))
+    return (bd, stacks, (k, m, b, bd.width),
+            bd.stack * bd.batch * packer.l_out)
+
+
+def sharded_stacks(dev: torch.device, path: str, n: int, k: int = 31,
+                   m: int = 11, b: int = 8, **geo) -> tuple:
+    """The first n steps of path as ShardedBrisk stages them on dev
+    (SHARDED_GEOMETRY unless given): (the ShardedBrisk, [(codes,
+    valid_start, valid_end)], the static tail (k, m, b, mesh, row_cap,
+    skl_route_cap), rows a step appends per shard)."""
+    from brisk_tpu_torch.io import windows
+    from brisk_tpu_torch.params import Parameters
+    from brisk_tpu_torch.parallel.facade import ShardedBrisk
+    sb = ShardedBrisk(Parameters(k, m, b), device=dev,
+                      **dict(SHARDED_GEOMETRY, **geo))
+    packer = windows.WindowPacker(k, m, sb.B, l_out=sb.window)
+    stacks = _first_stacks(packer, path, sb.stack, n, sb._stage)
+    per_step = sb.stack * (sb.n_shards * sb.skl_route_cap
+                           + sb.B_local * sb.skl_row_cap)
+    return (sb, stacks, (k, m, b, sb.mesh, sb.skl_row_cap,
+                         sb.skl_route_cap), per_step)
+
+
+def insert_programs(dev: torch.device, path: str, n: int,
+                    which: str) -> dict:
+    """The payload insert (which="payload") or the sharded step
+    ("sharded") on the first n flushes of path at its deployment's
+    geometry: {span: (program (state, i, chain) -> its tuple, the index
+    of n_km and of the chain in the tuple, a fresh state for n
+    flushes)}, its two INSERT_SPANS (the graph runner, then the eager
+    program)."""
+    from brisk_tpu_torch.index import flush_graph, payload, pipeline
+    from brisk_tpu_torch.parallel import sharded
+
+    def run(fn, stacks, static):
+        return lambda st, i, ch: fn(st, *stacks[i], ch, *static)
+
+    if which == "payload":
+        bd, stacks, static, cols = payload_stacks(dev, path, n)
+
+        def state():
+            return payload.empty(n * cols, bd.W, bd.width, dev)
+
+        return {"payload_flush": (run(flush_graph.insert_payload, stacks,
+                                      static), (1, 4), state),
+                "payload_flush_eager": (run(pipeline.insert_windows_payload,
+                                            stacks, static), (1, 4), state)}
+    sb, stacks, tail, per_step = sharded_stacks(dev, path, n)
+    rcap = 1 << max(12, (n * per_step - 1).bit_length())
+
+    def state():
+        return sharded.sharded_skl_empty(sb.n_shards, rcap, 1 << 12,
+                                         sb._skl_nw, sb.mesh)
+
+    return {"sharded_step": (run(flush_graph.insert_sharded, stacks, tail),
+                             (2, 7), state),
+            "sharded_step_eager": (run(sharded.sharded_insert_windows_sklonly,
+                                       stacks, tail), (2, 7), state)}
+
+
+def trace_inserts(dev: torch.device, out_dir: str, path: str) -> list:
+    """One flush of each INSERT_SPANS program from a zero chain into a
+    fresh state, at the deployments' geometries on path's first flush:
+    once to warm up (the graphs' captures), once untraced, once traced
+    (traced_call); one summary dict per span, in INSERT_SPANS order, with
+    its untraced wall ms and k-mer count."""
+    from brisk_tpu_torch.index import pipeline
+    programs = {**insert_programs(dev, path, 1, "payload"),
+                **insert_programs(dev, path, 1, "sharded")}
+    rows = []
+    for name in INSERT_SPANS:
+        fn, (km_at, _), state = programs[name]
+
+        def flush():
+            return int(fn(state(), 0, pipeline.zero_chain(dev))[km_at])
+
+        flush()
+        sync(dev)
+        t = time.perf_counter()
+        n_km = flush()
+        sync(dev)
+        untraced_ms = 1e3 * (time.perf_counter() - t)
+        traced, rec = traced_call(dev, name, flush, out_dir)
+        if traced != n_km:
+            raise RuntimeError(f"the traced {name} disagrees with the "
+                               f"untraced one")
+        rows.append(dict(rec, untraced_wall_ms=untraced_ms, n_km=n_km))
+    return rows
+
+
+def insert_breakdown(dev: torch.device, path: str, which: str) -> dict:
+    """Where one insert_file of path goes for `which` ("payload":
+    BriskData; "sharded": ShardedBrisk) at its deployment's geometry:
+    after a warm-up insert (the graph captured), one insert untimed, then
+    one with a synchronized host clock around the native parse,
+    WindowPacker.pack (`pack_calls`: batches), each flush (the graph
+    replay and the appends), each read-back to the host (Tensor.cpu: a
+    flush's outputs, and a repair's end states) and each payload
+    compaction; `rest_s` is the instrumented insert less those (staging
+    copies, the room checks, repairs and host bookkeeping)."""
+    import contextlib
+    from brisk_tpu_torch import native
+    from brisk_tpu_torch.data_api import BriskData
+    from brisk_tpu_torch.index import flush_graph, payload
+    from brisk_tpu_torch.io import windows
+    from brisk_tpu_torch.params import Parameters
+    from brisk_tpu_torch.parallel.facade import ShardedBrisk
+
+    def index():
+        if which == "payload":
+            return BriskData(Parameters(31, 11, 8), device=dev,
+                             **PAYLOAD_GEOMETRY)
+        return ShardedBrisk(Parameters(31, 11, 8), device=dev,
+                            **SHARDED_GEOMETRY)
+
+    def insert():
+        idx = index()
+        sync(dev)
+        t = time.perf_counter()
+        idx.insert_file(path)
+        sync(dev)
+        return time.perf_counter() - t, idx
+
+    insert()
+    untimed_s, _ = insert()
+    spent = {}
+
+    def timed(key, fn):
+        def call(*args, **kw):
+            sync(dev)
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            sync(dev)
+            n, s = spent.get(key, (0, 0.0))
+            spent[key] = (n + 1, s + time.perf_counter() - t)
+            return out
+        return call
+
+    def timed_pack(pack):
+        def call(self, records):
+            it = pack(self, records)
+            while True:
+                t = time.perf_counter()
+                bt = next(it, None)
+                n, s = spent.get("pack", (0, 0.0))
+                spent["pack"] = (n + (bt is not None),
+                                 s + time.perf_counter() - t)
+                if bt is None:
+                    return
+                yield bt
+        return call
+
+    flush = "insert_payload" if which == "payload" else "insert_sharded"
+    saved = [(native, "parse_fasta_codes"), (flush_graph, flush),
+             (torch.Tensor, "cpu"), (payload, "compact"),
+             (windows.WindowPacker, "pack")]
+    originals = [getattr(o, a) for o, a in saved]
+    with contextlib.ExitStack() as undo:
+        for (o, a), fn in zip(saved, originals):
+            # an inherited method (Tensor.cpu) is restored by deleting
+            # the override
+            undo.callback(*((setattr, o, a, fn) if a in vars(o)
+                            else (delattr, o, a)))
+        native.parse_fasta_codes = timed("parse", originals[0])
+        setattr(flush_graph, flush, timed("flush", originals[1]))
+        torch.Tensor.cpu = timed("read_back", originals[2])
+        payload.compact = timed("compact", originals[3])
+        windows.WindowPacker.pack = timed_pack(originals[4])
+        insert_s, idx = insert()
+    row = dict(stage="insert_breakdown", which=which, path=path,
+               insert_untimed_s=untimed_s, insert_s=insert_s,
+               n_emitted=idx.n_emitted)
+    for key in ("parse", "pack", "flush", "read_back", "compact"):
+        n, s = spent.get(key, (0, 0.0))
+        row[f"{key}_s"], row[f"{key}_calls"] = s, n
+    row["rest_s"] = insert_s - sum(row[f"{key}_s"] for key in (
+        "parse", "pack", "flush", "read_back", "compact"))
+    return row
+
+
+def insert_turns(dev: torch.device, path: str, which: str,
+                 turns: tuple = ("graph", "eager", "graph", "eager")
+                 ) -> dict:
+    """insert_file of path by a fresh index of `which` ("payload":
+    BriskData; "sharded": ShardedBrisk) at its deployment's geometry,
+    its flushes through the graph runner or the eager program in turns,
+    after one warm-up insert through each (the graph captured): the
+    seconds of each turn, by path. The eager turns swap flush_graph's
+    entry point for the eager program inside this measurement only."""
+    from brisk_tpu_torch.data_api import BriskData
+    from brisk_tpu_torch.index import flush_graph, pipeline
+    from brisk_tpu_torch.params import Parameters
+    from brisk_tpu_torch.parallel import sharded
+    from brisk_tpu_torch.parallel.facade import ShardedBrisk
+    name, eager = (("insert_payload", pipeline.insert_windows_payload)
+                   if which == "payload" else
+                   ("insert_sharded", sharded.sharded_insert_windows_sklonly))
+    graph = getattr(flush_graph, name)
+    seconds = {"graph": [], "eager": []}
+    emitted = set()
+    for i, turn in enumerate(("graph", "eager") + tuple(turns)):
+        idx = (BriskData(Parameters(31, 11, 8), device=dev,
+                         **PAYLOAD_GEOMETRY) if which == "payload" else
+               ShardedBrisk(Parameters(31, 11, 8), device=dev,
+                            **SHARDED_GEOMETRY))
+        setattr(flush_graph, name, graph if turn == "graph" else eager)
+        try:
+            sync(dev)
+            t = time.perf_counter()
+            idx.insert_file(path)
+            sync(dev)
+            if i >= 2:  # the first two warm up
+                seconds[turn].append(time.perf_counter() - t)
+        finally:
+            setattr(flush_graph, name, graph)
+        emitted.add(idx.n_emitted)
+    if len(emitted) != 1:
+        raise RuntimeError(f"the turns emitted different counts: {emitted}")
+    return dict(stage="insert_turns", which=which, insert_s=seconds,
+                n_emitted=emitted.pop())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="torch.profiler trace of flush, finalize and query join")
@@ -369,7 +655,14 @@ def main(argv=None) -> int:
                          "many bases (0: no)")
     ap.add_argument("--data-dir", default=tempfile.gettempdir(),
                     help="where the deployment's input is written once")
+    ap.add_argument("--inserts", action="store_true",
+                    help="with --deploy-bases: also trace the payload "
+                         "insert and the sharded step (INSERT_SPANS), "
+                         "break each one's insert_file down and time it "
+                         "graph / eager in turns")
     a = ap.parse_args(argv)
+    if a.inserts and not a.deploy_bases:
+        ap.error("--inserts needs --deploy-bases")
     dev = bench.device_of(a.device)
     info = bench.card_info(dev)
     print(f"{info['device_name']}, {info['power_limit_w']}", flush=True)
@@ -378,6 +671,14 @@ def main(argv=None) -> int:
     if a.deploy_bases:
         print(json.dumps(trace_query_file(dev, a.out, a.deploy_bases,
                                           a.data_dir)), flush=True)
+    if a.inserts:
+        path = bench.synth_path(a.data_dir, a.deploy_bases)
+        for row in trace_inserts(dev, a.out, path):
+            print(json.dumps(row), flush=True)
+        for which in ("payload", "sharded"):
+            print(json.dumps(insert_breakdown(dev, path, which)),
+                  flush=True)
+            print(json.dumps(insert_turns(dev, path, which)), flush=True)
     print(f"traces written to {os.path.join(a.out, 'trace_<span>.json')}",
           flush=True)
     return 0

@@ -61,7 +61,13 @@ is non-zero and no final `ok` line is printed):
    ("sum", "max"): count + last position) on the same 50 Mb at the
    counter's geometry: n_emitted and the count lane's total, the
    distinct count and 1,000 point lookups against the counter of phase
-   4; then BriskData on the card against the port on the CPU, bit for
+   4, every flush one graph replay (flush_graph.insert_payload);
+   payload-graph: that graph against the eager program
+   (pipeline.insert_windows_payload) on the deployment's first 6
+   flushes, outputs and states bit for bit, the flush walls, one flush
+   of each traced (host calls, device kernels, busy, idle), the
+   captures, replays and pool; then BriskData on the card against the
+   port on the CPU, bit for
    bit, at k=31 (width 3) and k=63 through insert_file (with repairs),
    update, reallocate and save -> load. This path launches the
    enumerator's kernels and no span expansion.
@@ -69,8 +75,11 @@ is non-zero and no final `ok` line is printed):
    on the one card) on the same 50 Mb at the counter's geometry (8 x 256
    lanes, window 512, stack 8): n_emitted and the shadow-free query_file
    total, the distinct count and 1,000 get_canonical calls against the
-   counter of phase 4, the kernel against its plain version at one
-   shard's finalize span; a forced spill (skl_route_cap 2) on 1 Mb whose
+   counter of phase 4, every step one graph replay
+   (flush_graph.insert_sharded), the kernel against its plain version at
+   one shard's finalize span; sharded-graph: that graph against the
+   eager program (sharded.sharded_insert_windows_sklonly) as
+   payload-graph does; a forced spill (skl_route_cap 2) on 1 Mb whose
    counts_dict equals a Brisk's, then sharded-reload (a second insert +
    finalize, save -> ShardedBrisk.load on the card: every shard's runs
    rebuilt, the sampled get_canonical unchanged); then the facade on the
@@ -812,8 +821,17 @@ def phase_payload(dev, dep: dict) -> dict:
         comp["s"] += time.perf_counter() - t
         return out
 
+    flushes = [0]
+    flush = bd._flush
+
+    def counted_flush(*args):
+        flushes[0] += 1
+        return flush(*args)
+
+    bd._flush = counted_flush
     reset_peak(dev)
     reset_launches()
+    replays0 = program_replays("payload")
     payload.compact = timed_compact
     try:
         t = time.perf_counter()
@@ -827,7 +845,9 @@ def phase_payload(dev, dep: dict) -> dict:
     st = bd.state
     n = st.n_sorted
     lane0 = int(to_u32(st.data[0, :n]).sum())
-    say("payload-insert", insert_s=insert_s,
+    replays = program_replays("payload") - replays0
+    say("payload-insert", insert_s=insert_s, flushes=flushes[0],
+        graph_replays=replays,
         compactions_in_insert=n_insert_compactions,
         insert_compact_s=insert_compact_s, compactions=comp["n"],
         compact_s=comp["s"], final_compact_s=comp["s"] - insert_compact_s,
@@ -836,6 +856,8 @@ def phase_payload(dev, dep: dict) -> dict:
         capacity=st.keys.shape[1],
         bytes_per_entry=(bd.W + bd.width) * 4 * st.keys.shape[1] / n,
         peak_gib=peak_gib(dev), launches=kernel_launches())
+    check(replays == flushes[0] > 0,
+          f"{replays} payload graph replays for {flushes[0]} flushes")
     check(bd.n_emitted == EXPECT_KMERS,
           f"payload n_emitted {bd.n_emitted} != {EXPECT_KMERS}")
     check(lane0 == EXPECT_KMERS, f"payload lane-0 total {lane0}")
@@ -859,6 +881,100 @@ def phase_payload(dev, dep: dict) -> dict:
     del bd, st
     torch.cuda.empty_cache()
     return dict(launches=n)
+
+
+def program_replays(program: str) -> int:
+    """Replays so far of the flush graphs of one program."""
+    from brisk_tpu_torch.index import flush_graph
+    return sum(g["replays"] for g in flush_graph.graphs()
+               if g["program"] == program)
+
+
+def phase_insert_graph(dev, dep: dict, which: str) -> dict:
+    """The payload insert (which="payload", as BriskData runs it) or the
+    sharded step ("sharded", as ShardedBrisk runs it on 8 shards of the
+    card) through its graph runner (flush_graph.insert_payload /
+    insert_sharded, one replay a flush) against its eager program on the
+    deployment's first FLUSH_GRAPH_FLUSHES flushes at its geometry: every
+    flush's outputs held to the end and the states whole, bit for bit;
+    each path's flush wall (the first flush apart); one flush of each
+    traced (trace_insert.traced_call: host calls, device kernels, busy,
+    idle); the program's captures, replays and pool."""
+    import torch
+    from brisk_tpu_torch import trace_insert
+    from brisk_tpu_torch.index import flush_graph, pipeline
+    graph_span, eager_span = (trace_insert.INSERT_SPANS[:2]
+                              if which == "payload"
+                              else trace_insert.INSERT_SPANS[2:])
+    programs = trace_insert.insert_programs(dev, dep["path"],
+                                            FLUSH_GRAPH_FLUSHES, which)
+    replays0 = program_replays(which)
+    runs, wall = {}, {}
+    for span in (eager_span, graph_span):
+        fn, (_, at), fresh = programs[span]
+        st, ch, outs, ms = fresh(), pipeline.zero_chain(dev), [], []
+        for i in range(FLUSH_GRAPH_FLUSHES):
+            sync(dev)
+            t = time.perf_counter()
+            out = fn(st, i, ch)
+            sync(dev)
+            ms.append(1e3 * (time.perf_counter() - t))
+            st, ch = out[0], out[at]
+            outs.append(out[1:])
+        wall[span] = dict(first_ms=ms[0], ms=sum(ms[1:]) / len(ms[1:]))
+        runs[span] = (st, outs)
+
+    def same(a, c) -> bool:
+        if isinstance(a, torch.Tensor):
+            return a.dtype == c.dtype and torch.equal(a, c)
+        if isinstance(a, (tuple, list)):
+            return len(a) == len(c) and all(same(x, y)
+                                            for x, y in zip(a, c))
+        return a == c
+
+    (e_st, e_outs), (g_st, g_outs) = runs[eager_span], runs[graph_span]
+    for i, (e, g) in enumerate(zip(e_outs, g_outs)):
+        check(same(e, g), f"{which} flush {i}: the graph's outputs != the "
+              "eager program's")
+    check(same(tuple(e_st), tuple(g_st)),
+          f"the {which} graph's state != the eager program's")
+    replays = program_replays(which) - replays0
+    check(replays == FLUSH_GRAPH_FLUSHES,
+          f"{replays} {which} graph replays for {FLUSH_GRAPH_FLUSHES} "
+          "flushes")
+    phase = f"{which}-graph"
+    say(phase, flushes=FLUSH_GRAPH_FLUSHES, equal=True,
+        n_km=[int(o[0 if which == "payload" else 1]) for o in g_outs],
+        eager_first_flush_ms=wall[eager_span]["first_ms"],
+        eager_flush_ms=wall[eager_span]["ms"],
+        graph_first_flush_ms=wall[graph_span]["first_ms"],
+        graph_flush_ms=wall[graph_span]["ms"])
+    del runs, e_st, g_st, e_outs, g_outs
+    traced = {}
+    for span in (graph_span, eager_span):
+        fn, (km_at, _), fresh = programs[span]
+        _, traced[span] = trace_insert.traced_call(
+            dev, span, lambda: int(fn(fresh(), 0,
+                                      pipeline.zero_chain(dev))[km_at]))
+        check(traced[span]["launches"] > 0,
+              f"the traced {span} ran no kernel")
+    g, e = traced[graph_span], traced[eager_span]
+    say(phase, host_launch_calls_per_flush=g["host_launch_calls"],
+        eager=e["host_launch_calls"], graph_calls=g["host_calls"])
+    say(phase, device_kernels_per_flush=g["launches"], eager=e["launches"],
+        busy_ms=g["busy_ms"], eager_busy_ms=e["busy_ms"],
+        wall_ms=g["wall_ms"], eager_wall_ms=e["wall_ms"],
+        idle=g["device_idle_share"], eager_idle=e["device_idle_share"])
+    graphs = [x for x in flush_graph.graphs() if x["program"] == which]
+    say(phase, captures=len(graphs),
+        replays=sum(x["replays"] for x in graphs),
+        captured_launches=[x["captured_launches"] for x in graphs],
+        capture_s=[x["capture_s"] for x in graphs],
+        pool_mib=[round(x["pool_bytes"] / 2 ** 20, 1) for x in graphs],
+        reserved_gib=torch.cuda.memory_reserved(dev) / 2 ** 30)
+    del programs
+    torch.cuda.empty_cache()
+    return dict(graph=g, eager=e, wall=wall)
 
 
 def phase_payload_parity(dev, tmp: str) -> None:
@@ -944,23 +1060,36 @@ def phase_sharded(dev, dep: dict) -> dict:
     from brisk_tpu_torch.params import Parameters
     from brisk_tpu_torch.parallel.facade import ShardedBrisk
     sb = ShardedBrisk(Parameters(K, M, B), device=dev, **SHARDED_GEOMETRY)
+    flushes = [0]
+    flush = sb._flush_stack
+
+    def counted_flush(*args):
+        flushes[0] += 1
+        return flush(*args)
+
+    sb._flush_stack = counted_flush
     reset_peak(dev)
     reset_launches()
+    replays0 = program_replays("sharded")
     t0 = time.perf_counter()
     sb.insert_file(dep["path"])
     sync(dev)
     t1 = time.perf_counter()
+    replays = program_replays("sharded") - replays0
     sb.finalize()
     sync(dev)
     t2 = time.perf_counter()
     fin = kernel_launches()
     rows = [int(x) for x in sb.skl.n_rows]
     say("sharded-insert", n_shards=sb.n_shards, insert_s=t1 - t0,
+        flushes=flushes[0], graph_replays=replays,
         finalize_s=t2 - t1, n_emitted=sb.n_emitted, n_spilled=sb.n_spilled,
         n_repaired_windows=sb.n_repaired_windows,
         n_skl_overflows=sb.n_skl_overflows, rows_per_shard=rows,
         rcap=sb.skl.bucket.shape[1], route_cap=sb.skl_route_cap,
         kmers_per_s=sb.n_emitted / (t2 - t0), finalize_launches=fin)
+    check(replays == flushes[0] > 0,
+          f"{replays} sharded graph replays for {flushes[0]} flushes")
     check(sb.n_emitted == EXPECT_KMERS,
           f"sharded n_emitted {sb.n_emitted} != {EXPECT_KMERS}")
     check(fin["jmajor"] >= sb.n_shards,
@@ -1658,11 +1787,14 @@ def main() -> int:
         del dep
         torch.cuda.empty_cache()
         pay = run("payload", phase_payload, dev, counter)
+        run("payload-graph", phase_insert_graph, dev, counter, "payload")
         run("payload-parity", phase_payload_parity, dev, tmp)
         # the CPU half of sharded-parity runs beside the card's phases
         ref = start_sharded_reference(tmp)
         try:
             shard = run("sharded", phase_sharded, dev, counter)
+            run("sharded-graph", phase_insert_graph, dev, counter,
+                "sharded")
             run("sharded-spill", phase_sharded_spill, dev, tmp)
             run("sharded-parity", phase_sharded_parity, dev, tmp, ref)
         finally:

@@ -380,6 +380,47 @@ def test_profile_insert_on_the_cpu(tmp_path):
     assert p["n_emitted"] == br.n_emitted > 0
 
 
+def test_insert_spans_and_breakdowns_on_the_cpu(tmp_path, monkeypatch):
+    """trace_insert's payload and sharded spans (INSERT_SPANS; on the CPU
+    the graph runner runs the eager program) at tiny geometries of equal
+    lanes: each span holds CPU ops and emits the same k-mers of the first
+    flush; each insert's breakdown counts one flush call per flush and
+    one pack call per batch, and its insert emits what a BriskData of
+    the same geometry emits, as do its graph / eager turns. --inserts
+    needs --deploy-bases."""
+    from brisk_tpu_torch.data_api import BriskData
+    from brisk_tpu_torch.params import Parameters
+    monkeypatch.setattr(trace_insert, "PAYLOAD_GEOMETRY", dict(
+        width=2, kinds=("sum", "max"), batch=32, window=64, stack=2))
+    monkeypatch.setattr(trace_insert, "SHARDED_GEOMETRY", dict(
+        n_devices=8, batch_per_shard=4, window=64, stack=2))
+    path = bench.synth_path(str(tmp_path), 30_000)
+    rows = trace_insert.trace_inserts(CPU, str(tmp_path), path)
+    assert [r["span"] for r in rows] == list(trace_insert.INSERT_SPANS)
+    assert len({r["n_km"] for r in rows}) == 1 and rows[0]["n_km"] > 0
+    for r in rows:
+        assert r["cpu_ops"] > 0 and r["untraced_wall_ms"] > 0
+        assert r["launches"] is None
+        assert (tmp_path / f"trace_{r['span']}.json").stat().st_size > 0
+    bd = BriskData(Parameters(31, 11, 8), device="cpu",
+                   **trace_insert.PAYLOAD_GEOMETRY)
+    bd.insert_file(path)
+    for which in ("payload", "sharded"):
+        b = trace_insert.insert_breakdown(CPU, path, which)
+        assert b["which"] == which and b["n_emitted"] == bd.n_emitted > 0
+        assert b["parse_calls"] == 1
+        assert b["pack_calls"] == 2 * b["flush_calls"] > 0  # full stacks
+        assert b["read_back_calls"] >= b["flush_calls"]
+        assert (b["compact_calls"] > 0) == (which == "payload")
+        assert b["insert_s"] >= b["flush_s"] > 0
+        t = trace_insert.insert_turns(CPU, path, which, ("eager", "graph"))
+        assert t["n_emitted"] == bd.n_emitted
+        assert [len(t["insert_s"][x]) for x in ("graph", "eager")] == [1, 1]
+    assert "cpu" not in vars(torch.Tensor)  # Tensor.cpu restored
+    with pytest.raises(SystemExit):
+        trace_insert.main(["--device", "cpu", "--inserts"])
+
+
 @pytest.mark.parametrize("entry", ["bench", "trace_insert", "profile_device",
                                    "profile_sort", "profile_insert"])
 def test_entry_points_need_a_card_unless_asked(entry):

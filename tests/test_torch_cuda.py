@@ -14,7 +14,9 @@ scan of the query join and of compact (kernels.join_scan,
 kernels.run_totals) against theirs, called repeatedly at shapes that
 stress their look-back and replayed from a CUDA graph; the insert
 programs as CUDA graph replays (index.flush_graph) against the eager
-programs, bit for bit. They skip on a machine without a card.
+programs, bit for bit, and so the payload insert and the sharded step
+(BriskData's and ShardedBrisk's flushes). They skip on a machine
+without a card.
 This file imports no jax; on the card's machine (which has no jax) run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1280,3 +1282,237 @@ def test_flush_graph_failed_capture_raises(device, graphs, monkeypatch):
     assert graphs.graphs() == []
     assert int(skl.n_rows) == 0
     torch.cuda.synchronize()
+
+
+# -- the payload insert and the sharded step as CUDA graph replays --------
+
+def _window_batches(lanes: int, window: int, kmb=(31, 11, 8)):
+    """Every window batch (io.windows) of _graph_records at lanes x
+    window, and the packer."""
+    from brisk_tpu_torch.io import windows
+    packer = windows.WindowPacker(kmb[0], kmb[1], lanes, l_out=window)
+    return list(packer.pack(iter(_graph_records()))), packer
+
+
+def _payload_program(device, n: int, S: int = 2):
+    """The payload program at a BriskData's geometry (k=31, width 2, 64
+    lanes, window 128, stack S): (eager, graph) as (state, stack i,
+    chain) -> the program's tuple, the n staged stacks, a fresh state of
+    1.5 stacks' columns, the chain's index in the tuple and the room
+    rule BriskData._room_for applies before flush i, (state, i) ->
+    state."""
+    from brisk_tpu_torch.data_api import BriskData
+    from brisk_tpu_torch.index import flush_graph, payload, pipeline
+    bd = BriskData(Parameters(31, 11, 8), width=2, batch=64, window=128,
+                   stack=S, device=device)
+    batches, packer = _window_batches(64, bd.window)
+    assert len(batches) >= n * S
+    stacks = [bd._stage(packer, batches[i:i + S])
+              for i in range(0, n * S, S)]
+    cols = S * 64 * packer.l_out
+    static = (31, 11, 8, 2)
+
+    def room(state, i):
+        if state.n_used + cols > state.keys.shape[1]:
+            state = payload.compact(state, bd.kinds)
+        return payload.ensure_room(state, cols)
+
+    return ((lambda st, i, ch: pipeline.insert_windows_payload(
+                st, *stacks[i], ch, *static)),
+            (lambda st, i, ch: flush_graph.insert_payload(
+                st, *stacks[i], ch, *static)),
+            stacks, payload.empty(cols * 3 // 2, bd.W, 2, device), 4, room)
+
+
+def _sharded_program(device, n: int, S: int = 2, route_cap: int = 2):
+    """The sharded step at a ShardedBrisk's geometry (k=31, 8 shards x 16
+    lanes, window 128, stack S, a route cap that spills): as
+    _payload_program, the room rule a sharded_skl_grow doubling the
+    arenas before the third stack."""
+    from brisk_tpu_torch.index import flush_graph
+    from brisk_tpu_torch.parallel import sharded
+    from brisk_tpu_torch.parallel.facade import ShardedBrisk
+    sb = ShardedBrisk(Parameters(31, 11, 8), n_devices=8, batch_per_shard=16,
+                      window=128, stack=S, skl_route_cap=route_cap,
+                      device=device)
+    batches, _ = _window_batches(sb.B, sb.window)
+    assert len(batches) >= n * S
+    stacks = [sb._stage(batches[i:i + S]) for i in range(0, n * S, S)]
+    tail = (31, 11, 8, sb.mesh, sb.skl_row_cap, route_cap)
+
+    def room(skl, i):
+        if i == 2:
+            return sharded.sharded_skl_grow(skl, 2 * skl.bucket.shape[1],
+                                            sb.mesh)
+        return skl
+
+    return ((lambda st, i, ch: sharded.sharded_insert_windows_sklonly(
+                st, *stacks[i], ch, *tail)),
+            (lambda st, i, ch: flush_graph.insert_sharded(
+                st, *stacks[i], ch, *tail)),
+            stacks, sb.skl, 7, room)
+
+
+PROGRAMS = {"payload": _payload_program, "sharded": _sharded_program}
+
+
+def _clone_state(state):
+    return type(state)(*(x.clone() if isinstance(x, torch.Tensor) else x
+                         for x in state))
+
+
+@pytest.mark.parametrize("program", sorted(PROGRAMS))
+def test_payload_and_sharded_graphs_match_eager(device, graphs, program):
+    """Eight payload flushes (the log compacted and grown on the way, as
+    BriskData._room_for does) or four sharded steps at a spilling route
+    cap (the arenas grown by sharded_skl_grow before the third) through
+    the graph runner against the eager program on the same inputs, the
+    chain carried: every flush's outputs held until all have run (more
+    than any caller keeps, so outputs a later replay overwrote would
+    show), then compared bit for bit, as are the states. One capture,
+    a replay a flush."""
+    from brisk_tpu_torch.index import pipeline
+    n = 8 if program == "payload" else 4
+    eager, graph, stacks, state, at, room = PROGRAMS[program](device, n)
+    runs = []
+    for fn in (eager, graph):
+        st, ch, outs, rooms = _clone_state(state), (
+            pipeline.zero_chain(device)), [], []
+        for i in range(n):
+            st = room(st, i)
+            rooms.append(st.keys.shape[1] if program == "payload"
+                         else st.bucket.shape[1])
+            out = fn(st, i, ch)
+            st, ch = out[0], out[at]
+            outs.append(out[1:])
+        runs.append((st, outs, rooms))
+    torch.cuda.synchronize()
+    (e_st, e_outs, e_rooms), (g_st, g_outs, g_rooms) = runs
+    for e, g in zip(e_outs, g_outs):
+        _assert_same_outputs(e, g)
+    _assert_same_outputs(tuple(x for x in e_st if isinstance(x,
+                                                             torch.Tensor)),
+                         tuple(x for x in g_st if isinstance(x,
+                                                             torch.Tensor)))
+    assert e_rooms == g_rooms and e_rooms[-1] > e_rooms[0]  # grown
+    if program == "payload":
+        assert (e_st.n_used, e_st.n_sorted) == (g_st.n_used, g_st.n_sorted)
+        assert g_st.n_sorted > 0  # compacted on the way
+    else:
+        assert sum(int(o[2]) for o in g_outs) > 0  # rows spilled
+        assert int(g_st.n_rows.sum()) > 0
+    cert_at = 1 if program == "payload" else 3
+    assert any(bool((~o[cert_at]).any()) for o in g_outs)  # uncertified
+    (info,) = graphs.graphs()
+    assert info["program"] == program and info["replays"] == n
+    assert info["pool_bytes"] > 0
+
+
+@pytest.mark.parametrize("program", sorted(PROGRAMS))
+def test_payload_and_sharded_graph_launches_equal_eager(device, graphs,
+                                                        program):
+    """kernels.LAUNCHES over the replays (after the capture) equals its
+    count over eager flushes of the same inputs."""
+    from brisk_tpu_torch.index import pipeline
+    eager, graph, stacks, state, at, room = PROGRAMS[program](device, 3)
+    graph(room(_clone_state(state), 0), 0, pipeline.zero_chain(device))
+    counted = []
+    for fn in (eager, graph):
+        st, ch = _clone_state(state), pipeline.zero_chain(device)
+        before = dict(kernels.LAUNCHES)
+        for i in range(len(stacks)):
+            out = fn(room(st, i), i, ch)
+            st, ch = out[0], out[at]
+        counted.append(kernels.launch_delta(before, kernels.LAUNCHES))
+    assert counted[1] == counted[0]
+    names = ("positions", "rescan", "state_scan", "emit")
+    if program == "sharded":
+        names += ("skl_rows",)
+    for name in names:
+        assert counted[0][name] >= len(stacks), name
+    assert "skl_rows" in counted[0] or program == "payload"
+
+
+@pytest.mark.parametrize("program", sorted(PROGRAMS))
+def test_payload_and_sharded_failed_capture_raises(device, graphs,
+                                                   monkeypatch, program):
+    """A body that reads the host while capturing fails its capture: the
+    entry point raises, caches no graph and does not run the flush
+    eagerly instead."""
+    from brisk_tpu_torch.index import pipeline
+    prog = graphs.PROGRAMS[program]
+
+    def reads_the_host(*args):
+        out = prog.body(*args)
+        torch.cuda.synchronize()
+        return out
+
+    monkeypatch.setitem(graphs.PROGRAMS, program,
+                        prog._replace(body=reads_the_host))
+    eager, graph, stacks, state, at, room = PROGRAMS[program](device, 1)
+    st = room(state, 0)
+    with pytest.raises(RuntimeError):
+        graph(st, 0, pipeline.zero_chain(device))
+    assert graphs.graphs() == []
+    if program == "payload":
+        assert st.n_used == 0 and bool((st.keys == -1).all())
+    else:
+        assert int(st.n_rows.sum()) == 0
+    torch.cuda.synchronize()
+
+
+def test_sharded_graph_refuses_a_mesh_of_several_processes(device, graphs):
+    """insert_sharded on the card refuses a mesh whose group is set (its
+    collectives are not captured); ShardedBrisk runs that mesh's eager
+    program."""
+    from brisk_tpu_torch.parallel import multihost
+    eager, graph, stacks, state, at, room = _sharded_program(device, 1)
+    mesh = multihost.Mesh(8, device, n_proc=2, pid=0, group=object())
+    with pytest.raises(ValueError, match="several processes"):
+        graphs.insert_sharded(state, *stacks[0], None, 31, 11, 8, mesh,
+                              32, 2)
+    assert graphs.graphs() == []
+
+
+def test_briskdata_and_sharded_flushes_each_replay_the_graph(device, graphs,
+                                                             tmp_path,
+                                                             monkeypatch):
+    """BriskData and ShardedBrisk (8 shards on the card) insert a file
+    with one graph replay a flush, and equal their CPU counterparts."""
+    from brisk_tpu_torch import bench
+    from brisk_tpu_torch.data_api import BriskData
+    from brisk_tpu_torch.index import payload
+    from brisk_tpu_torch.parallel.facade import ShardedBrisk
+    path = bench.synth_path(str(tmp_path), 60_000)
+    flushes = []
+    for cls, name in ((BriskData, "_flush"), (ShardedBrisk, "_flush_stack")):
+        run = getattr(cls, name)
+
+        def counted(self, *args, _run=run, _cls=cls):
+            flushes.append(_cls.__name__)
+            return _run(self, *args)
+
+        monkeypatch.setattr(cls, name, counted)
+    built = {}
+    for dev in ("cpu", device):
+        bd = BriskData(Parameters(31, 11, 8), batch=64, window=128, stack=2,
+                       device=dev)
+        sb = ShardedBrisk(Parameters(31, 11, 8), n_devices=8,
+                          batch_per_shard=8, window=128, stack=2, device=dev)
+        for idx in (bd, sb):
+            idx.insert_file(path)
+        built[str(dev)] = (payload.to_numpy(bd.state), _arena_np(sb), bd,
+                           sb)
+    (cpu_p, cpu_s, cpu_bd, cpu_sb), (card_p, card_s, card_bd, card_sb) = (
+        built["cpu"], built[str(device)])
+    for f in ("keys", "data", "n_sorted", "n_used"):
+        assert np.array_equal(cpu_p[f], card_p[f]), f
+    for f, a in cpu_s.items():
+        assert np.array_equal(a, card_s[f]), f
+    assert card_bd.n_emitted == cpu_bd.n_emitted > 0
+    assert card_sb.n_emitted == cpu_sb.n_emitted == card_bd.n_emitted
+    info = {g["program"]: g["replays"] for g in graphs.graphs()}
+    n_card = len(flushes) // 2
+    assert info == {"payload": flushes[n_card:].count("BriskData"),
+                    "sharded": flushes[n_card:].count("ShardedBrisk")}
+    assert min(info.values()) > 0

@@ -4,12 +4,15 @@ brisk_tpu's jitted insert_flat_sklnative and insert_stream_sklnative,
 flush after flush with the chain or carry carried (arena columns whole,
 flags, end states, counts, chain or carry, all bit for bit); the graph
 runner's plumbing (inputs packed into one buffer and the small outputs
-out of one, per program) around the same bodies; the runner refusing a
-CPU device; its launch bookkeeping. Inputs come from numpy and the
+out of one, per program: flat, stream, payload and sharded) around the
+same bodies; the runner refusing a CPU device; its launch bookkeeping.
+The payload and sharded bodies against brisk_tpu are in
+tests/test_torch_payload_graph.py and tests/test_torch_sharded.py. Inputs come from numpy and the
 repository's FASTA fixtures. The runner itself (capture, replay) needs a
 card: tests/test_torch_cuda.py -k graph."""
 
 import random
+from typing import NamedTuple
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,9 +28,13 @@ from brisk_tpu.oracle import pyref
 from brisk_tpu_torch import _u32, kernels
 from brisk_tpu_torch.api import Brisk
 from brisk_tpu_torch.index import flush_graph
+from brisk_tpu_torch.index import payload as t_payload
 from brisk_tpu_torch.index import pipeline as t_pipe
 from brisk_tpu_torch.index import sklstore as t_skl
+from brisk_tpu_torch.index import store as t_store
+from brisk_tpu_torch.io import windows as t_win
 from brisk_tpu_torch.ops import enumerate as t_enum
+from brisk_tpu_torch.parallel import sharded as t_sharded
 from brisk_tpu_torch.params import Parameters
 
 torch.set_num_threads(2)
@@ -173,17 +180,33 @@ def test_stream_body_and_append_match_brisk_tpu():
     assert int(ts.n_rows) > 0
 
 
+class _Case(NamedTuple):
+    """One program's plumbing case: the eager program and the runner's
+    entry point as (state, *inputs, carry) -> the eager tuple, the
+    program's name and static arguments, the input tuples of two flushes
+    (before the carry), a fresh state, the first carry and the carry's
+    index in the tuple."""
+    eager: object
+    via: object
+    name: str
+    static: tuple
+    inputs: list
+    state: object
+    carry: object
+    carry_at: int
+
+
 def _flat_case():
-    """(eager function, program, static, [input tuples of two flushes],
-    fresh arena)."""
     k, m, b = K31
     flushes, row_cap, packer = _flat_flushes("data/debug_test.fa", 16, 96,
                                              2)
     static = (k, m, b, row_cap, packer.l_buf, packer.useful)
     inputs = [tuple(torch.from_numpy(x) for x in fl[:3]) for fl in flushes]
     skl = t_skl.empty(1 << 13, 1 << 12, t_skl.skl_dims(k, m, b)[3], "cpu")
-    return (t_pipe.insert_flat_sklnative, "flat", static, inputs, skl,
-            t_pipe.zero_chain())
+    return _Case(lambda st, *a: t_pipe.insert_flat_sklnative(st, *a,
+                                                             *static),
+                 lambda st, *a: flush_graph.insert_flat(st, *a, *static),
+                 "flat", static, inputs, skl, t_pipe.zero_chain(), 6)
 
 
 def _stream_case():
@@ -192,27 +215,81 @@ def _stream_case():
     inputs = [tuple(torch.from_numpy(x) for x in fl)
               for fl in _stream_flushes(2)]
     skl = t_skl.empty(1 << 12, 1 << 12, t_skl.skl_dims(k, m, b)[3], "cpu")
-    return (t_pipe.insert_stream_sklnative, "stream", static, inputs, skl,
-            t_enum.zero_carry(4))
+    return _Case(lambda st, *a: t_pipe.insert_stream_sklnative(st, *a,
+                                                               *static),
+                 lambda st, *a: flush_graph.insert_stream(st, *a, *static),
+                 "stream", static, inputs, skl, t_enum.zero_carry(4), 3)
 
 
-CASES = {"flat": _flat_case, "stream": _stream_case}
+def _window_stacks(kmb, lanes, window, n, path="data/debug_test.fa"):
+    """The first n stacks of S window batches (the port's WindowPacker)
+    of a FASTA, and the packer."""
+    packer = t_win.WindowPacker(kmb[0], kmb[1], lanes, l_out=window)
+    batches = list(packer.pack(pyref.read_fasta_chunks(path)))
+    assert len(batches) >= n * S
+    return [batches[i:i + S] for i in range(0, n * S, S)], packer
 
 
-def _carry_of(program, out):
-    """The chain (flat) or carry (stream) of an eager program's tuple."""
-    return out[6] if program == "flat" else out[3]
+def _payload_case():
+    k, m, b = K31
+    width = 2
+    stacks, packer = _window_stacks(K31, 16, 96, 2)
+    inputs = [(torch.from_numpy(np.stack([bt.codes for bt in st])
+                                ).to(torch.int64),
+               *(torch.from_numpy(np.stack([getattr(bt, f) for bt in st]))
+                 for f in ("valid_start", "valid_end")),
+               torch.from_numpy(np.stack([bt.win.astype(np.int64)
+                                          * packer.useful for bt in st])))
+              for st in stacks]
+    static = (k, m, b, width)
+    state = t_payload.empty(1 << 13, t_store.key_words(k, b), width, "cpu")
+    return _Case(lambda st, *a: t_pipe.insert_windows_payload(st, *a,
+                                                              *static),
+                 lambda st, *a: flush_graph.insert_payload(st, *a, *static),
+                 "payload", static, inputs, state, t_pipe.zero_chain(), 4)
+
+
+def _sharded_case():
+    k, m, b = K31
+    n_shards, lanes, window, route_cap = 8, 4, 144, 2
+    stacks, _ = _window_stacks(K31, n_shards * lanes, window, 2)
+    inputs = [tuple(torch.from_numpy(np.stack([getattr(bt, f)
+                                               for bt in st]))
+                    for f in ("codes", "valid_start", "valid_end"))
+              for st in stacks]
+    row_cap = window // 4
+    mesh = t_sharded.make_mesh(n_shards, "cpu")
+    static = (k, m, b, n_shards, n_shards, row_cap, route_cap)
+    skl = t_sharded.sharded_skl_empty(n_shards, 1 << 13, 1 << 12,
+                                      t_skl.skl_dims(k, m, b)[3], mesh)
+    tail = (k, m, b, mesh, row_cap, route_cap)
+    return _Case(lambda st, *a: t_sharded.sharded_insert_windows_sklonly(
+                     st, *a, *tail),
+                 lambda st, *a: flush_graph.insert_sharded(st, *a, *tail),
+                 "sharded", static, inputs, skl, t_pipe.zero_chain(), 7)
+
+
+CASES = {"flat": _flat_case, "stream": _stream_case,
+         "payload": _payload_case, "sharded": _sharded_case}
+
+
+def _clone(state):
+    """A state (an arena, a payload log) with its tensors copied."""
+    return type(state)(*(x.clone() if isinstance(x, torch.Tensor) else x
+                         for x in state))
 
 
 def _same(a, c):
-    """Two eager-program tuples (arena states, tensors, nested tuples)
-    equal bit for bit."""
+    """Two eager-program tuples (states, tensors, host ints, nested
+    tuples) equal bit for bit."""
     if isinstance(a, torch.Tensor):
         assert a.dtype == c.dtype and torch.equal(a, c)
-    else:
+    elif isinstance(a, (tuple, list)):
         assert len(a) == len(c)
         for x, y in zip(a, c):
             _same(x, y)
+    else:
+        assert a == c
 
 
 @pytest.mark.parametrize("program", sorted(CASES))
@@ -220,14 +297,16 @@ def test_runner_plumbing_matches_the_eager_program(program):
     """The runner's host side on the CPU: each flush's inputs packed into
     one static buffer (the carry's bytes first), the body run from its
     views, the carry and small outputs packed into one buffer and cloned,
-    the blocks appended; every element of the eager program's tuple
-    equal, over two flushes with the carry fed from the clone."""
-    eager, name, static, inputs, skl, carry = CASES[program]()
-    prog = flush_graph.PROGRAMS[name]
-    skl_e, carry_e, skl_g, carry_g = skl, carry, t_skl.SklState(
-        *(t.clone() for t in skl)), carry
-    for args in inputs:
-        want = eager(skl_e, *args, carry_e, *static)
+    the blocks appended by the program's append; every element of the
+    eager program's tuple equal, over two flushes with the carry fed from
+    the clone."""
+    case = CASES[program]()
+    prog = flush_graph.PROGRAMS[case.name]
+    nc = prog.n_carry
+    st_e, carry_e = case.state, case.carry
+    st_g, carry_g = _clone(case.state), case.carry
+    for args in case.inputs:
+        want = case.eager(st_e, *args, carry_e)
         leaves = prog.leaves(*args, carry_g)
         packed = flush_graph._Packed.of([flush_graph._spec(t)
                                          for t in leaves])
@@ -235,37 +314,34 @@ def test_runner_plumbing_matches_the_eager_program(program):
         views = packed.views(buf)
         for v, t in zip(views, leaves):
             v.copy_(t)
-        blocks, n_live, out_carry, small = prog.split(
-            prog.body(*prog.inputs(views), *static))
+        blocks, out_carry, small = prog.split(
+            prog.body(*prog.inputs(views), *case.static))
         out = flush_graph._Packed.of([flush_graph._spec(t)
                                       for t in out_carry + small])
-        assert out.specs[:prog.n_carry] == packed.specs[:prog.n_carry]
-        assert out.offsets[prog.n_carry] == packed.offsets[prog.n_carry]
+        assert out.specs[:nc] == packed.specs[:nc]
+        assert out.offsets[nc] == packed.offsets[nc]
         obuf = torch.empty(out.nbytes, dtype=torch.uint8)
         for v, t in zip(out.views(obuf), out_carry + small):
             v.copy_(t)
         got_views = out.views(obuf.clone())
-        skl_g = t_pipe.append_blocks(skl_g, blocks, n_live)
-        got = prog.result(skl_g, got_views[:prog.n_carry],
-                          got_views[prog.n_carry:])
+        st_g = prog.append(st_g, *blocks)
+        got = prog.result(st_g, got_views[:nc], got_views[nc:])
         _same(want, got)
-        skl_e, carry_e = want[0], _carry_of(name, want)
-        carry_g = _carry_of(name, got)
+        st_e, carry_e = want[0], want[case.carry_at]
+        carry_g = got[case.carry_at]
 
 
 @pytest.mark.parametrize("program", sorted(CASES))
 def test_runner_refuses_a_cpu_device_and_cpu_flushes_run_eagerly(program):
-    """A FlushGraph cannot be built for the CPU; insert_flat and
-    insert_stream on CPU tensors run the eager program, equal to it, and
-    capture nothing."""
-    eager, name, static, inputs, skl, carry = CASES[program]()
+    """A FlushGraph cannot be built for the CPU; insert_flat,
+    insert_stream, insert_payload and insert_sharded on CPU tensors run
+    the eager program, equal to it, and capture nothing."""
+    case = CASES[program]()
     with pytest.raises(ValueError, match="CUDA graphs need a CUDA device"):
-        flush_graph.FlushGraph(name, "cpu", static, inputs[0] + (carry,))
-    via = flush_graph.insert_flat if name == "flat" else (
-        flush_graph.insert_stream)
-    want = eager(t_skl.SklState(*(t.clone() for t in skl)), *inputs[0],
-                 carry, *static)
-    _same(want, via(skl, *inputs[0], carry, *static))
+        flush_graph.FlushGraph(case.name, "cpu", case.static,
+                               case.inputs[0] + (case.carry,))
+    want = case.eager(_clone(case.state), *case.inputs[0], case.carry)
+    _same(want, case.via(case.state, *case.inputs[0], case.carry))
     assert flush_graph.graphs() == []
 
 
@@ -295,17 +371,27 @@ def test_packed_layout_holds_every_dtype():
         assert torch.equal(v, t)
 
 
-@pytest.mark.parametrize("replays", [0, 1, 7])
-def test_launch_bookkeeping_counts_each_replay(replays):
-    """kernels.launch_delta and add_launches as the runner uses them: the
-    capture's wrapper calls (which launch nothing) are taken back out,
-    and every replay adds the captured launches, so the counts equal an
-    eager run of the same flushes."""
+# kernel launches a flush of each program makes (S = 8 batches): the
+# payload program builds no super-k-mer rows. The flat program's cases
+# keep their ids (the replays alone).
+PER_FLUSH = {name: dict({"positions": 16, "rescan": 16, "state_scan": 8,
+                         "emit": 8}, **({} if name == "payload"
+                                        else {"skl_rows": 8}))
+             for name in ("flat", "payload", "sharded")}
+BOOKKEEPING = [pytest.param(r, p, id=str(r) if p == "flat" else f"{p}-{r}")
+               for p in PER_FLUSH for r in (0, 1, 7)]
+
+
+@pytest.mark.parametrize("replays,program", BOOKKEEPING)
+def test_launch_bookkeeping_counts_each_replay(replays, program):
+    """kernels.launch_delta and add_launches as the runner uses them, with
+    each program's kernels: the capture's wrapper calls (which launch
+    nothing) are taken back out, and every replay adds the captured
+    launches, so the counts equal an eager run of the same flushes."""
     counts = {"positions": 5, "rescan": 3, "state_scan": 2, "emit": 2,
               "skl_rows": 0, "join_scan": 1}
     eager = dict(counts)
-    per_flush = {"positions": 4, "rescan": 4, "state_scan": 2, "emit": 2,
-                 "skl_rows": 2}
+    per_flush = PER_FLUSH[program]
     before = dict(counts)
     for name, n in per_flush.items():  # the capture's wrapper calls
         counts[name] += n
@@ -318,6 +404,7 @@ def test_launch_bookkeeping_counts_each_replay(replays):
         kernels.add_launches(per_flush, counts=eager)
     assert counts == eager
     assert counts["join_scan"] == 1
+    assert counts["skl_rows"] == (0 if program == "payload" else 8 * replays)
     assert kernels.launch_delta(counts, counts) == {}
 
 

@@ -3,7 +3,8 @@ process on the CPU) and the point / join reads of index.sklstore against
 brisk_tpu's on the 8-device CPU mesh, on the same inputs: the routing
 buffer, the windowed insert's every per-shard arena array, counters,
 certificates, end states, overflow flags and chain (k=31, k=63, forced
-spill), the host-built row delivery, bucket_slice / probe (hits, misses,
+spill), the same for its split into sharded_flush_body and append_blocks
+(what the card's CUDA graph runs) across a growth of the arenas, the host-built row delivery, bucket_slice / probe (hits, misses,
 keys split across segments) and query_join_keys_total. Exact
 comparisons throughout."""
 
@@ -139,6 +140,71 @@ def test_insert_windows_sklonly_matches(jmesh, k, m, b, route_cap):
     assert int(tst.n_rows.sum()) > 0
     if route_cap == 2:
         assert spilled > 0
+
+
+@pytest.mark.parametrize("route_cap", [None, 2])
+def test_sharded_body_and_append_match_brisk_tpu(jmesh, route_cap):
+    """sharded_flush_body (what a CUDA graph replays on the card) then
+    append_blocks (what runs after the replay), two stacks with the chain
+    carried and both packages' arenas grown by sharded_skl_grow between
+    them, against brisk_tpu's jitted sharded_insert_windows_sklonly:
+    every arena array whole, the counters, certificates, end states,
+    overflow flags and the chain. The blocks are live first: each
+    shard's n_live rows lead, the rest hold an INVALID bucket. The
+    route cap of 2 spills, the default does not."""
+    k, m, b = 31, 11, 8
+    B_local, S, window = 4, 2, 144
+    B = N_SHARDS * B_local
+    row_cap = window // 4
+    route_cap = route_cap or 4 * B_local * row_cap // N_SHARDS
+    nw = sklstore.skl_dims(k, m, b)[3]
+    packer = j_windows.WindowPacker(k, m, B, l_out=window)
+    batches = list(packer.pack(iter(_records(k, 7 + route_cap))))
+    assert len(batches) >= 2 * S, "need two full stacks"
+    tmesh = sharded.make_mesh(N_SHARDS, "cpu")
+    rcap = 1 << 14
+    jst = j_sharded.sharded_skl_empty(N_SHARDS, rcap, 1 << 12, nw, jmesh)
+    tst = sharded.sharded_skl_empty(N_SHARDS, rcap, 1 << 12, nw, tmesh)
+    jch, tch = j_pipeline.zero_chain(), pipeline.zero_chain("cpu")
+    n = N_SHARDS * route_cap + B_local * row_cap
+    spilled = 0
+    for f in range(2):
+        if f:
+            jst = j_sharded.sharded_skl_grow(jst, 2 * rcap, jmesh)
+            tst = sharded.sharded_skl_grow(tst, 2 * rcap, tmesh)
+        stack = batches[f * S:(f + 1) * S]
+        codes = np.stack([bt.codes for bt in stack])
+        vs = np.stack([bt.valid_start for bt in stack])
+        ve = np.stack([bt.valid_end for bt in stack])
+        (jst, j_sk, j_km, j_sp, j_cert, j_ends, j_ovf,
+         jch) = j_sharded.sharded_insert_windows_sklonly(
+            jst, jnp.asarray(codes), jnp.asarray(vs), jnp.asarray(ve), jch,
+            k=k, m=m, b=b, mesh=jmesh, row_cap=row_cap,
+            skl_route_cap=route_cap)
+        (blocks, n_live, t_sk, t_km, t_sp, t_cert, t_ends, t_ovf,
+         tch) = sharded.sharded_flush_body(
+            torch.from_numpy(codes), torch.from_numpy(vs),
+            torch.from_numpy(ve), tch, k, m, b, tmesh, row_cap, route_cap)
+        assert blocks.shape == (S, N_SHARDS, 2 + nw, n)
+        assert blocks.dtype == torch.int32 and n_live.shape == (S, N_SHARDS)
+        live = blocks[:, :, 0] != -1
+        assert torch.equal(live.sum(2), n_live)
+        assert torch.equal(live, torch.arange(n) < n_live[..., None])
+        rows0 = tst.n_rows.clone()
+        tst = sharded.append_blocks(tst, blocks, n_live)
+        assert torch.equal(tst.n_rows, rows0 + n_live.sum(0))
+        assert_same_state(tst, jst, f"stack {f}")
+        assert (int(t_sk), int(t_km), int(t_sp)) == (int(j_sk), int(j_km),
+                                                     int(j_sp))
+        for got, want in [(t_cert, j_cert), (t_ovf, j_ovf)] + list(
+                zip(t_ends, j_ends)):
+            np.testing.assert_array_equal(_np(got), _np(want))
+        for got, want in zip(list(tch[0]) + [tch[1]],
+                             list(jch[0]) + [jch[1]]):
+            assert int(got) == int(want)
+        spilled += int(t_sp)
+    assert tst.bucket.shape[1] == 2 * rcap and int(tst.n_rows.sum()) > 0
+    assert (spilled > 0) == (route_cap == 2)
 
 
 def test_append_skl_rows_matches(jmesh):
