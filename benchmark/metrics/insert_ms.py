@@ -1,0 +1,8 @@
+"""insert_ms: the traced job's `insert_file` span (host clock, closed by a
+device synchronize), ms."""
+
+from benchmark import tracing
+
+
+def read(record):
+    return tracing.span_ms(record, "insert")
