@@ -32,7 +32,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from brisk_tpu_torch import _u32, kernels
+from brisk_tpu_torch import _u32, kernels, spans
 from brisk_tpu_torch.index import (flush_graph, pipeline, readout,
                                    sklstore, store)
 from brisk_tpu_torch.io import fasta, windows
@@ -122,7 +122,8 @@ class Brisk:
         _, _, _, nw = sklstore.skl_dims(params.k, params.m, params.b)
         flush_rows = stack * batch * self.skl_row_cap
         rcap = 1 << max(14, (2 * flush_rows - 1).bit_length())
-        self.skl = sklstore.empty(rcap, 1 << 14, nw, self.device)
+        with spans.call("Brisk"):
+            self.skl = sklstore.empty(rcap, 1 << 14, nw, self.device)
 
     # -- insertion ---------------------------------------------------------
 
@@ -137,12 +138,13 @@ class Brisk:
             if pf[2]:
                 self.parser = "native"
                 return iter(pf[2][0])
-        chunks = native.parse_fasta_codes(path)
-        if chunks is not None:
-            self.parser = "native"
-            return iter(chunks)
-        self.parser = "python"
-        return pyref.read_fasta_chunks(path)
+        with spans.span("parse"):
+            chunks = native.parse_fasta_codes(path)
+            if chunks is not None:
+                self.parser = "native"
+                return iter(chunks)
+            self.parser = "python"
+            return pyref.read_fasta_chunks(path)
 
     def _presize_for(self, n_bases_estimate: int) -> None:
         """Grow the arena once up front to what the input will need: at
@@ -192,9 +194,12 @@ class Brisk:
         native.load()
         if path is not None:
             box = []
+            ctx = spans.context()
 
             def parse():
-                chunks = native.parse_fasta_codes(path)
+                spans.adopt(ctx)
+                with spans.span("parse"):
+                    chunks = native.parse_fasta_codes(path)
                 if chunks is not None:
                     box.append(chunks)
 
@@ -229,11 +234,12 @@ class Brisk:
                 fl.valid_end.reshape(S, B))) + (pipeline.zero_chain(dev),)
 
     def insert_file(self, path: str) -> None:
-        try:
-            self._presize_for(os.path.getsize(path))
-        except OSError:
-            pass
-        self._insert_windowed(self._records(path))
+        with spans.call("insert_file"):
+            try:
+                self._presize_for(os.path.getsize(path))
+            except OSError:
+                pass
+            self._insert_windowed(self._records(path))
 
     def insert_sequence(self, seq: str) -> None:
         """Counts every k-mer of one sequence."""
@@ -259,15 +265,20 @@ class Brisk:
         q = queue.Queue(maxsize=2)
         err = []
         dev = self.device
+        ctx = spans.context()
+
+        def staged(fl):
+            return (fl, torch.from_numpy(fl.chunk4).to(dev),
+                    torch.from_numpy(fl.valid_start.reshape(S, B)).to(dev),
+                    torch.from_numpy(fl.valid_end.reshape(S, B)).to(dev))
 
         def producer():
+            spans.adopt(ctx)
             try:
-                for fl in packer.pack_flat(records, S):
-                    q.put((fl, torch.from_numpy(fl.chunk4).to(dev),
-                           torch.from_numpy(fl.valid_start.reshape(S, B)
-                                            ).to(dev),
-                           torch.from_numpy(fl.valid_end.reshape(S, B)
-                                            ).to(dev)))
+                # a pack span each: one flush packed and staged
+                for item in spans.iterate(
+                        "pack", map(staged, packer.pack_flat(records, S))):
+                    q.put(item)
             except BaseException as e:  # surface in the consumer
                 err.append(e)
             finally:
@@ -289,8 +300,9 @@ class Brisk:
         across batches and flushes, fused row appends; no certificates
         and no repairs. The lane length follows the p90 record length."""
         p = self.params
-        records = list(records)
-        lens = sorted(len(r) for r in records if len(r) >= p.k)
+        with spans.span("pack"):
+            records = list(records)
+            lens = sorted(len(r) for r in records if len(r) >= p.k)
         rec_len = lens[max(0, int(0.9 * len(lens)) - 1)] if lens else None
         packer = self._stream_geometry(rec_len)
         if rec_len is not None and rec_len <= packer.l_buf:
@@ -298,12 +310,13 @@ class Brisk:
             # laid out with one vectorized fancy-index store per batch
             # instead of BatchPacker's per-record lane loop
             shorts, longs = [], []
-            for r in records:
-                if len(r) < p.k:
-                    continue
-                if isinstance(r, str):
-                    r = fasta.chunk_codes(r)
-                (shorts if len(r) <= packer.l_buf else longs).append(r)
+            with spans.span("pack"):
+                for r in records:
+                    if len(r) < p.k:
+                        continue
+                    if isinstance(r, str):
+                        r = fasta.chunk_codes(r)
+                    (shorts if len(r) <= packer.l_buf else longs).append(r)
 
             def batches():
                 B, l_buf = self.batch, packer.l_buf
@@ -350,24 +363,28 @@ class Brisk:
             nonlocal carry
             if self._rows_ub + flush_rows > self.skl.bucket.shape[0]:
                 self._settle_counts()
-                self._rows_ub = int(self.skl.n_rows)
+                with spans.span("readback"):
+                    self._rows_ub = int(self.skl.n_rows)
                 self.skl = sklstore.ensure_room(self.skl, flush_rows)
 
             def stacked(field):
                 return torch.from_numpy(np.stack(
                     [getattr(bt, field) for bt in batches])).to(dev)
 
-            (self.skl, n_sk, n_km, carry,
-             _) = flush_graph.insert_stream(
-                self.skl, stacked("codes"), stacked("fresh"),
-                stacked("valid_end"), carry, p.k, p.m, p.b, row_cap)
+            with spans.span("pack"):
+                staged = [stacked(f) for f in ("codes", "fresh",
+                                               "valid_end")]
+            with spans.span("flush"):
+                (self.skl, n_sk, n_km, carry,
+                 _) = flush_graph.insert_stream(
+                    self.skl, *staged, carry, p.k, p.m, p.b, row_cap)
             self._count_acc.append((n_sk, n_km, 0))
             self._rows_ub += flush_rows
             self._dirty = True
             self._expanded = None
 
         pending = []
-        for bt in batch_iter:
+        for bt in spans.iterate("pack", batch_iter):
             pending.append(bt)
             if len(pending) == S:
                 flush(pending)
@@ -387,10 +404,11 @@ class Brisk:
         if self._rows_ub + flush_rows > self.skl.bucket.shape[0]:
             self._drain()  # exact n_rows; grow only if truly needed
             self.skl = sklstore.ensure_room(self.skl, flush_rows)
-        (self.skl, n_sk, n_km, flags, ends,
-         _, self._chain) = flush_graph.insert_flat(
-            self.skl, chunk4_d, vs_d, ve_d, self._chain,
-            *self._flat_static(packer))
+        with spans.span("flush"):
+            (self.skl, n_sk, n_km, flags, ends,
+             _, self._chain) = flush_graph.insert_flat(
+                self.skl, chunk4_d, vs_d, ve_d, self._chain,
+                *self._flat_static(packer))
         self._rows_ub += flush_rows
         self._dirty = True
         self._expanded = None
@@ -408,10 +426,11 @@ class Brisk:
             # counter scalars and the final row count
             recs, self._pending = self._pending, []
             sizes = [r["flags"].numel() for r in recs]
-            host = torch.cat(
-                [r["flags"].reshape(-1).to(torch.int64) for r in recs]
-                + [torch.stack([r["n_sk"], r["n_km"]]) for r in recs]
-                + [self.skl.n_rows.reshape(1)]).cpu().numpy()
+            with spans.span("readback"):
+                host = torch.cat(
+                    [r["flags"].reshape(-1).to(torch.int64) for r in recs]
+                    + [torch.stack([r["n_sk"], r["n_km"]]) for r in recs]
+                    + [self.skl.n_rows.reshape(1)]).cpu().numpy()
             n_appended0 = self._n_repair_appends
             off = sum(sizes)
             cnts = host[off:off + 2 * len(recs)].reshape(-1, 2)
@@ -425,14 +444,16 @@ class Brisk:
                 self._rows_ub = int(host[-1])
                 return
         self._settle_counts()
-        self._rows_ub = int(self.skl.n_rows)
+        with spans.span("readback"):
+            self._rows_ub = int(self.skl.n_rows)
 
     def _settle_counts(self) -> None:
         """Fold deferred per-flush counter scalars in one copy."""
         if not self._count_acc:
             return
-        flat = torch.stack([torch.stack([r[0], r[1]])
-                            for r in self._count_acc]).cpu().numpy()
+        with spans.span("readback"):
+            flat = torch.stack([torch.stack([r[0], r[1]])
+                                for r in self._count_acc]).cpu().numpy()
         for (n_sk, n_km), (_, _, n_recs) in zip(flat, self._count_acc):
             self.n_superkmers += int(n_sk) + n_recs
             self.n_emitted += int(n_km)
@@ -454,8 +475,10 @@ class Brisk:
             self._count_acc.append((rec["n_sk"], rec["n_km"],
                                     flush.n_records))
 
-        flags = (rec["flags"].cpu().numpy() if flags_np is None
-                 else flags_np).reshape(-1)
+        if flags_np is None:
+            with spans.span("readback"):
+                flags_np = rec["flags"].cpu().numpy()
+        flags = flags_np.reshape(-1)
         cert_f = (flags & 1).astype(bool)
         rec_f = flush.rec
         win_f = flush.win
@@ -466,8 +489,9 @@ class Brisk:
         def ends_f():
             """Per-lane end states, copied to the host lazily."""
             if not ends_cache:
-                ends_cache.append([x.cpu().numpy().reshape(S * B)
-                                   for x in rec["ends"]])
+                with spans.span("readback"):
+                    ends_cache.append([x.cpu().numpy().reshape(S * B)
+                                       for x in rec["ends"]])
             return ends_cache[0]
 
         def end_of(j):
@@ -501,7 +525,9 @@ class Brisk:
             if not seed_ok:
                 self._degrade(f"no exact repair seed for record {r} "
                               f"window {w}; window-local replay")
-                repaired_ends[j0] = self._repair_window_unchained(flush, j0)
+                with spans.span("repair"):
+                    e7 = self._repair_window_unchained(flush, j0)
+                repaired_ends[j0] = e7
                 self.n_repaired_windows += 1
                 if run[1:]:
                     checked.append(run[1:])
@@ -516,7 +542,8 @@ class Brisk:
             assert ready
             carries = [self._prev_tail[2]() if r[0] == 0
                        else end_of(r[0] - 1) for r in ready]
-            end7s = self._repair_runs(packer, flush, ready, carries)
+            with spans.span("repair"):
+                end7s = self._repair_runs(packer, flush, ready, carries)
             for r, e7 in zip(ready, end7s):
                 repaired_ends[r[-1]] = e7
             self.n_repaired_windows += sum(len(r) for r in ready)
@@ -531,7 +558,8 @@ class Brisk:
 
         ovf_f = (flags >> 1).astype(bool)
         for j in np.nonzero(ovf_f & cert_f & (rec_f >= 0))[0]:
-            self._repair_skl_overflow(flush, int(j))
+            with spans.span("repair"):
+                self._repair_skl_overflow(flush, int(j))
             self.n_skl_overflows += 1
 
     def _append_skl_from_emissions(self, em, valid, first_valid,
@@ -653,22 +681,23 @@ class Brisk:
     def finalize(self) -> None:
         """Consolidate the fresh rows of the arena into a new
         bucket-grouped segment (sklstore.finalize_device)."""
-        p = self.params
-        self._drain()
-        f_before = int(self.skl.n_fin_rows)
-        self.skl = sklstore.finalize_device(self.skl, p.k, p.m, p.b)
-        self._rows_ub = int(self.skl.n_rows)
-        f_after = int(self.skl.n_fin_rows)
-        if f_after == 0:
-            self._skl_segments = []
-        elif f_after > f_before:
-            self._skl_segments.append((f_before, f_after))
-        self._n_fin_host = f_after
-        self._host_cache = None
-        self._dirty = False
-        if (len(self._skl_segments) > self.max_segments
-                and f_after <= self.consolidate_max_rows):
-            self.consolidate()
+        with spans.call("finalize"):
+            p = self.params
+            self._drain()
+            f_before = int(self.skl.n_fin_rows)
+            self.skl = sklstore.finalize_device(self.skl, p.k, p.m, p.b)
+            self._rows_ub = int(self.skl.n_rows)
+            f_after = int(self.skl.n_fin_rows)
+            if f_after == 0:
+                self._skl_segments = []
+            elif f_after > f_before:
+                self._skl_segments.append((f_before, f_after))
+            self._n_fin_host = f_after
+            self._host_cache = None
+            self._dirty = False
+            if (len(self._skl_segments) > self.max_segments
+                    and f_after <= self.consolidate_max_rows):
+                self.consolidate()
 
     def consolidate(self) -> None:
         """Whole-arena maintenance: merge every segment into one
@@ -750,19 +779,20 @@ class Brisk:
         FASTA (reference query_fasta, counter.cpp:314-346): the query is
         enumerated into a temporary arena through the insert pipeline and
         resolved with one sort-merge join against the finalized index."""
-        p = self.params
-        self._ensure_final()
-        qbr = Brisk(p, batch=self.batch, window=self.window,
-                    stack=self.stack, device=self.device)
-        qbr.insert_file(path)
-        # retire the shadow's flushes so its repaired windows and
-        # overflow lanes join too (brisk_tpu's query_file skips this and
-        # undercounts inputs that need repairs)
-        qbr._drain()
-        box = [qbr.skl]  # ownership moves to the join
-        qbr.skl = None
-        del qbr
-        return sklstore.query_join_total(self.skl, box, p.k, p.m, p.b)
+        with spans.call("query_file"):
+            p = self.params
+            self._ensure_final()
+            qbr = Brisk(p, batch=self.batch, window=self.window,
+                        stack=self.stack, device=self.device)
+            qbr.insert_file(path)
+            # retire the shadow's flushes so its repaired windows and
+            # overflow lanes join too (brisk_tpu's query_file skips this and
+            # undercounts inputs that need repairs)
+            qbr._drain()
+            box = [qbr.skl]  # ownership moves to the join
+            qbr.skl = None
+            del qbr
+            return sklstore.query_join_total(self.skl, box, p.k, p.m, p.b)
 
     # -- enumeration -------------------------------------------------------
 

@@ -19,6 +19,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from brisk_tpu_torch import spans
 from brisk_tpu_torch._u32 import M32, from_np, to_np
 from brisk_tpu_torch.api import _device, end_states
 from brisk_tpu_torch.index import (flush_graph, payload, pipeline,
@@ -75,10 +76,12 @@ class BriskData:
         """Windowed batched insertion of a FASTA; payload = (count,
         position-within-record) under the instance's lane kinds."""
         from brisk_tpu_torch import native
-        chunks = native.parse_fasta_codes(path)
-        records = iter(chunks) if chunks is not None else \
-            pyref.read_fasta_chunks(path)
-        self._insert_windowed(records)
+        with spans.call("insert_file"):
+            with spans.span("parse"):
+                chunks = native.parse_fasta_codes(path)
+                records = iter(chunks) if chunks is not None else \
+                    pyref.read_fasta_chunks(path)
+            self._insert_windowed(records)
 
     def insert_sequence(self, seq: str, extra: np.ndarray = None) -> None:
         """Insert every k-mer of `seq`. Lane 0 gets +1 (count); lanes 1..
@@ -129,7 +132,7 @@ class BriskData:
         self._chain = pipeline.zero_chain(self.device)
         S, B = self.stack, self.batch
         pending = []
-        for bt in packer.pack(records):
+        for bt in spans.iterate("pack", packer.pack(records)):
             pending.append(bt)
             if len(pending) == S:
                 self._flush(packer, pending)
@@ -173,13 +176,16 @@ class BriskData:
     def _flush(self, packer, batches) -> None:
         p = self.params
         S, B = len(batches), self.batch
-        staged = self._stage(packer, batches)
+        with spans.span("pack"):
+            staged = self._stage(packer, batches)
         self._room_for(S * B * packer.l_out)
-        (self.state, n_km, cert, ends,
-         self._chain) = flush_graph.insert_payload(
-            self.state, *staged, self._chain, p.k, p.m, p.b, self.width)
-        host = torch.cat([cert.reshape(-1).to(torch.int64),
-                          n_km.reshape(1)]).cpu().numpy()
+        with spans.span("flush"):
+            (self.state, n_km, cert, ends,
+             self._chain) = flush_graph.insert_payload(
+                self.state, *staged, self._chain, p.k, p.m, p.b, self.width)
+        with spans.span("readback"):
+            host = torch.cat([cert.reshape(-1).to(torch.int64),
+                              n_km.reshape(1)]).cpu().numpy()
         self.n_emitted += int(host[-1])
 
         cert_f = host[:-1].astype(bool)
@@ -193,8 +199,9 @@ class BriskData:
             if j in repaired_ends:
                 return repaired_ends[j]
             if not ends_cache:  # per-lane end states, copied lazily
-                ends_cache.extend(x.cpu().numpy().reshape(S * B)
-                                  for x in ends)
+                with spans.span("readback"):
+                    ends_cache.extend(x.cpu().numpy().reshape(S * B)
+                                      for x in ends)
             return tuple(e[j] for e in ends_cache)
 
         # repair failure runs as contiguous streaming spans (one lane per
@@ -212,7 +219,8 @@ class BriskData:
             rest = [r for r in runs if r[0] - 1 in blocked]
             carries = [self._prev_tail[2] if r[0] == 0 else end_of(r[0] - 1)
                        for r in ready]
-            end7s = self._repair_runs(packer, batches, ready, carries)
+            with spans.span("repair"):
+                end7s = self._repair_runs(packer, batches, ready, carries)
             for r, e7 in zip(ready, end7s):
                 repaired_ends[r[-1]] = e7
             self.n_repaired_windows += sum(len(r) for r in ready)
@@ -292,7 +300,8 @@ class BriskData:
         self._dirty = True
 
     def compact(self) -> None:
-        self.state = payload.compact(self.state, self.kinds)
+        with spans.span("compact"):
+            self.state = payload.compact(self.state, self.kinds)
         self._dirty = False
 
     def _ensure_compact(self) -> None:

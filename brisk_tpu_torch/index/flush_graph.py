@@ -50,7 +50,7 @@ from typing import NamedTuple
 
 import torch
 
-from brisk_tpu_torch import kernels
+from brisk_tpu_torch import kernels, spans
 from brisk_tpu_torch.index import payload, pipeline
 from brisk_tpu_torch.ops.minimizer import MinimizerState
 from brisk_tpu_torch.parallel import multihost, sharded
@@ -309,7 +309,8 @@ def runner(program: str, device, static: tuple, inputs: tuple) -> FlushGraph:
     key = (device, program, static,
            tuple(_spec(t) for t in PROGRAMS[program].leaves(*inputs)))
     if key not in _GRAPHS:
-        _GRAPHS[key] = FlushGraph(program, device, static, inputs)
+        with spans.span("capture"):  # the warm-up and the capture
+            _GRAPHS[key] = FlushGraph(program, device, static, inputs)
     return _GRAPHS[key]
 
 

@@ -35,7 +35,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from brisk_tpu_torch import kernels
+from brisk_tpu_torch import kernels, spans
 from brisk_tpu_torch._u32 import (INVALID, M32, from_np, lexsort, to_i32,
                                   to_np, to_u32)
 from brisk_tpu_torch.index import store
@@ -72,14 +72,17 @@ def _scalar(v, device) -> torch.Tensor:
 
 
 def empty(row_cap: int, kmer_cap: int, nw: int, device="cpu") -> SklState:
-    z = _scalar(0, device)
-    return SklState(
-        bucket=torch.full((row_cap,), -1, dtype=torch.int32, device=device),
-        meta=torch.zeros(row_cap, dtype=torch.int32, device=device),
-        nucs=torch.zeros((nw, row_cap), dtype=torch.int32, device=device),
-        data=torch.zeros(kmer_cap, dtype=torch.int32, device=device),
-        offs=torch.zeros(row_cap, dtype=torch.int32, device=device),
-        n_rows=z, n_fin_rows=z.clone(), n_fin_kmers=z.clone())
+    with spans.span("alloc"):
+        z = _scalar(0, device)
+        return SklState(
+            bucket=torch.full((row_cap,), -1, dtype=torch.int32,
+                              device=device),
+            meta=torch.zeros(row_cap, dtype=torch.int32, device=device),
+            nucs=torch.zeros((nw, row_cap), dtype=torch.int32,
+                             device=device),
+            data=torch.zeros(kmer_cap, dtype=torch.int32, device=device),
+            offs=torch.zeros(row_cap, dtype=torch.int32, device=device),
+            n_rows=z, n_fin_rows=z.clone(), n_fin_kmers=z.clone())
 
 
 def grow(state: SklState, row_cap: int, kmer_cap: int) -> SklState:
@@ -94,10 +97,11 @@ def grow(state: SklState, row_cap: int, kmer_cap: int) -> SklState:
                           device=x.device)
         return torch.cat([x, tail], dim=-1)
 
-    return state._replace(
-        bucket=pad(state.bucket, rpad, -1), meta=pad(state.meta, rpad),
-        nucs=pad(state.nucs, rpad), data=pad(state.data, kpad),
-        offs=pad(state.offs, rpad))
+    with spans.span("alloc"):
+        return state._replace(
+            bucket=pad(state.bucket, rpad, -1), meta=pad(state.meta, rpad),
+            nucs=pad(state.nucs, rpad), data=pad(state.data, kpad),
+            offs=pad(state.offs, rpad))
 
 
 def ensure_room(state: SklState, n_rows_incoming: int) -> SklState:
@@ -490,16 +494,18 @@ def finalize_device(state: SklState, k: int, m: int, b: int) -> SklState:
     duplicated ACROSS segments stay split (sum semantics)."""
     cs, s_max, nt_max, nw = skl_dims(k, m, b)
     dev = state.bucket.device
-    F, N = int(state.n_fin_rows), int(state.n_rows)
-    if N == 0:
-        return empty(state.bucket.shape[0], state.data.shape[0], nw, dev)
-    if N == F:
-        return state
-    state, n_live, total_k = finalize_span_dispatch(state, F, N, k, m, b)
-    nl, tk = int(n_live), int(total_k)
-    return state._replace(n_rows=_scalar(F + nl, dev),
-                          n_fin_rows=_scalar(F + nl, dev),
-                          n_fin_kmers=state.n_fin_kmers + tk)
+    with spans.span("finalize"):
+        F, N = int(state.n_fin_rows), int(state.n_rows)
+        if N == 0:
+            return empty(state.bucket.shape[0], state.data.shape[0], nw, dev)
+        if N == F:
+            return state
+        state, n_live, total_k = finalize_span_dispatch(
+            state, F, N, k, m, b)
+        nl, tk = int(n_live), int(total_k)
+        return state._replace(n_rows=_scalar(F + nl, dev),
+                              n_fin_rows=_scalar(F + nl, dev),
+                              n_fin_kmers=state.n_fin_kmers + tk)
 
 
 def consolidate_all(state: SklState, k: int, m: int, b: int) -> SklState:
@@ -904,21 +910,24 @@ def query_join_total(state: SklState, qstate_box: list,
     index arena. qstate_box: single-element list holding the query
     SklState; the callee takes ownership and frees it after expansion.
     Chunked over the query slots to bound peak device memory."""
-    ik, icnt = expand_for_join(state, k, m, b)
+    with spans.span("join.expand"):
+        ik, icnt = expand_for_join(state, k, m, b)
     qstate = qstate_box.pop()
-    qk, qcnt = expand_for_join(qstate, k, m, b)
+    with spans.span("join.expand"):
+        qk, qcnt = expand_for_join(qstate, k, m, b)
     del qstate
     Sq = qk.shape[1]
     CQ = min(Sq, 1 << 26)
     total = 0
     for start in range(0, Sq, CQ):
-        qc = qk[:, start:start + CQ]
-        ql = qcnt[start:start + CQ]
-        pad = CQ - qc.shape[1]
-        if pad:
-            qc = torch.cat([qc, qc.new_full((qc.shape[0], pad), -1)], 1)
-            ql = torch.cat([ql, ql.new_zeros(pad)])
-        total += int(_query_join_partials(ik, icnt, qc, ql).sum())
+        with spans.span("join.merge"):
+            qc = qk[:, start:start + CQ]
+            ql = qcnt[start:start + CQ]
+            pad = CQ - qc.shape[1]
+            if pad:
+                qc = torch.cat([qc, qc.new_full((qc.shape[0], pad), -1)], 1)
+                ql = torch.cat([ql, ql.new_zeros(pad)])
+            total += int(_query_join_partials(ik, icnt, qc, ql).sum())
     return total
 
 
@@ -931,18 +940,20 @@ def query_join_keys_total(state: SklState, qk: torch.Tensor,
     Sq) int32 (u32 bit patterns) on the arena's device, qlive (Sq,) bool.
     Chunked over the query slots at a bounded set of widths, each chunk
     padded with INVALID keys, to bound peak device memory."""
-    ik, icnt = expand_for_join(state, k, m, b)
+    with spans.span("join.expand"):
+        ik, icnt = expand_for_join(state, k, m, b)
     Sq = qk.shape[1]
     CQ = min(_shape_family(max(Sq, 1)), chunk)
     total = 0
     for start in range(0, Sq, CQ):
-        qc = qk[:, start:start + CQ]
-        ql = qlive[start:start + CQ].to(torch.int64)
-        pad = CQ - qc.shape[1]
-        if pad:
-            qc = torch.cat([qc, qc.new_full((qc.shape[0], pad), -1)], 1)
-            ql = torch.cat([ql, ql.new_zeros(pad)])
-        total += int(_query_join_partials(ik, icnt, qc, ql).sum())
+        with spans.span("join.merge"):
+            qc = qk[:, start:start + CQ]
+            ql = qlive[start:start + CQ].to(torch.int64)
+            pad = CQ - qc.shape[1]
+            if pad:
+                qc = torch.cat([qc, qc.new_full((qc.shape[0], pad), -1)], 1)
+                ql = torch.cat([ql, ql.new_zeros(pad)])
+            total += int(_query_join_partials(ik, icnt, qc, ql).sum())
     return total
 
 

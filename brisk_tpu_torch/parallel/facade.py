@@ -37,7 +37,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from brisk_tpu_torch import _u32
+from brisk_tpu_torch import _u32, spans
 from brisk_tpu_torch.index import (flush_graph, pipeline, readout, sklstore,
                                    store)
 from brisk_tpu_torch.io import fasta, windows
@@ -138,14 +138,15 @@ class ShardedBrisk:
     # -- insertion ---------------------------------------------------------
 
     def insert_file(self, path: str) -> None:
-        records = self._records(path)
-        if self.multihost:
-            # every process reads the (shared) file; round-robin record
-            # ownership; each packs only its own lanes
-            records = [r for i, r in enumerate(records)
-                       if i % self.n_proc == self.pid]
-        self._insert_windowed(iter(records) if isinstance(records, list)
-                              else records)
+        with spans.call("insert_file"):
+            records = self._records(path)
+            if self.multihost:
+                # every process reads the (shared) file; round-robin record
+                # ownership; each packs only its own lanes
+                records = [r for i, r in enumerate(records)
+                           if i % self.n_proc == self.pid]
+            self._insert_windowed(iter(records) if isinstance(records, list)
+                                  else records)
 
     def insert_sequence(self, seq: str) -> None:
         if self.multihost and self.pid != 0:
@@ -154,10 +155,11 @@ class ShardedBrisk:
 
     def _records(self, path: str):
         from brisk_tpu_torch import native
-        chunks = native.parse_fasta_codes(path)
-        if chunks is not None:
-            return iter(chunks)
-        return pyref.read_fasta_chunks(path)
+        with spans.span("parse"):
+            chunks = native.parse_fasta_codes(path)
+            if chunks is not None:
+                return iter(chunks)
+            return pyref.read_fasta_chunks(path)
 
     def _insert_windowed(self, records) -> None:
         """Pack this process's records into window stacks and flush them.
@@ -192,7 +194,7 @@ class ShardedBrisk:
 
         n_flushed = 0
         pending = []
-        for bt in packer.pack(records):
+        for bt in spans.iterate("pack", packer.pack(records)):
             pending.append(bt)
             if len(pending) == S:
                 self._flush_stack(packer, pending)
@@ -229,20 +231,24 @@ class ShardedBrisk:
         # collectives are not captured)
         step = (flush_graph.insert_sharded if self.mesh.group is None
                 else sharded.sharded_insert_windows_sklonly)
-        (self.skl, n_sk, n_km, n_sp, cert, ends, ovf,
-         self._chain) = step(
-            self.skl, *self._stage(batches), self._chain,
-            p.k, p.m, p.b, self.mesh, self.skl_row_cap,
-            self.skl_route_cap)
+        with spans.span("pack"):
+            staged = self._stage(batches)
+        with spans.span("flush"):
+            (self.skl, n_sk, n_km, n_sp, cert, ends, ovf,
+             self._chain) = step(
+                self.skl, *staged, self._chain,
+                p.k, p.m, p.b, self.mesh, self.skl_row_cap,
+                self.skl_route_cap)
         self._skl_rows_ub += per_flush
         self._skl_dirty = True
         # ONE device->host copy: counters, certificates, overflow flags
         # and the per-lane end states
-        host = torch.cat([torch.stack([n_sk, n_km, n_sp]),
-                          cert.reshape(-1).to(torch.int64),
-                          ovf.reshape(-1).to(torch.int64)]
-                         + [e.reshape(-1).to(torch.int64) for e in ends]
-                         ).cpu().numpy()
+        with spans.span("readback"):
+            host = torch.cat([torch.stack([n_sk, n_km, n_sp]),
+                              cert.reshape(-1).to(torch.int64),
+                              ovf.reshape(-1).to(torch.int64)]
+                             + [e.reshape(-1).to(torch.int64) for e in ends]
+                             ).cpu().numpy()
         n_sk, n_km, n_sp = (int(x) for x in host[:3])
         self.n_emitted += n_km
         self.n_spilled += n_sp
@@ -290,8 +296,9 @@ class ShardedBrisk:
             rest = [r for r in runs if r[0] - 1 in blocked]
             carries = [self._prev_tail[2] if r[0] == 0 else end_of(r[0] - 1)
                        for r in ready]
-            end7s, sklrows_np = self._rerun_runs(packer, batches, ready,
-                                                 carries)
+            with spans.span("repair"):
+                end7s, sklrows_np = self._rerun_runs(packer, batches, ready,
+                                                     carries)
             for r, e7 in zip(ready, end7s):
                 repaired_ends[r[-1]] = e7
             if sklrows_np is not None:

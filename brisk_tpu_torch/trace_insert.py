@@ -62,8 +62,9 @@ pipeline.insert_windows_payload), `sharded_step` and
 `sharded_step_eager` (ShardedBrisk's step, 8 shards x 256 lanes, W 512,
 S 8, one process: flush_graph.insert_sharded and
 sharded.sharded_insert_windows_sklonly); then for each of the two
-indexes where a warm insert_file of the input goes (insert_breakdown:
-parse, WindowPacker.pack, flushes, read-backs, compactions, the rest)
+indexes where a warm insert_file of the input goes (insert_breakdown,
+from the program's spans: parse, packing, flushes, read-backs,
+compactions, the rest)
 and its insert_file with its flushes through the graph and the eager
 program in turns (insert_turns).
 """
@@ -516,29 +517,24 @@ def insert_breakdown(dev: torch.device, path: str, which: str) -> dict:
     """Where one insert_file of path goes for `which` ("payload":
     BriskData; "sharded": ShardedBrisk) at its deployment's geometry:
     after a warm-up insert (the graph captured), one insert untimed, then
-    one with a synchronized host clock around the native parse,
-    WindowPacker.pack (`pack_calls`: batches), each flush (the graph
-    replay and the appends), each read-back to the host (Tensor.cpu: a
-    flush's outputs, and a repair's end states) and each payload
-    compaction; `rest_s` is the instrumented insert less those (staging
-    copies, the room checks, repairs and host bookkeeping)."""
-    import contextlib
-    from brisk_tpu_torch import native
+    one under spans.recording(), whose spans give the own seconds and
+    the count of the native parse, the packing (`pack_calls`: each next()
+    of WindowPacker.pack, the one that finds it exhausted too, and each
+    stack's staging copies), the flushes (the graph replay and the
+    appends), the read-backs to the host (a flush's outputs, a repair's
+    end states) and the payload compactions; `rest_s` is the insert less
+    those (the room checks, repairs and host bookkeeping). Nothing
+    synchronizes inside the insert."""
+    from brisk_tpu_torch import spans
     from brisk_tpu_torch.data_api import BriskData
-    from brisk_tpu_torch.index import flush_graph, payload
-    from brisk_tpu_torch.io import windows
     from brisk_tpu_torch.params import Parameters
     from brisk_tpu_torch.parallel.facade import ShardedBrisk
 
-    def index():
-        if which == "payload":
-            return BriskData(Parameters(31, 11, 8), device=dev,
-                             **PAYLOAD_GEOMETRY)
-        return ShardedBrisk(Parameters(31, 11, 8), device=dev,
-                            **SHARDED_GEOMETRY)
-
     def insert():
-        idx = index()
+        idx = (BriskData(Parameters(31, 11, 8), device=dev,
+                         **PAYLOAD_GEOMETRY) if which == "payload" else
+               ShardedBrisk(Parameters(31, 11, 8), device=dev,
+                            **SHARDED_GEOMETRY))
         sync(dev)
         t = time.perf_counter()
         idx.insert_file(path)
@@ -547,58 +543,21 @@ def insert_breakdown(dev: torch.device, path: str, which: str) -> dict:
 
     insert()
     untimed_s, _ = insert()
-    spent = {}
-
-    def timed(key, fn):
-        def call(*args, **kw):
-            sync(dev)
-            t = time.perf_counter()
-            out = fn(*args, **kw)
-            sync(dev)
-            n, s = spent.get(key, (0, 0.0))
-            spent[key] = (n + 1, s + time.perf_counter() - t)
-            return out
-        return call
-
-    def timed_pack(pack):
-        def call(self, records):
-            it = pack(self, records)
-            while True:
-                t = time.perf_counter()
-                bt = next(it, None)
-                n, s = spent.get("pack", (0, 0.0))
-                spent["pack"] = (n + (bt is not None),
-                                 s + time.perf_counter() - t)
-                if bt is None:
-                    return
-                yield bt
-        return call
-
-    flush = "insert_payload" if which == "payload" else "insert_sharded"
-    saved = [(native, "parse_fasta_codes"), (flush_graph, flush),
-             (torch.Tensor, "cpu"), (payload, "compact"),
-             (windows.WindowPacker, "pack")]
-    originals = [getattr(o, a) for o, a in saved]
-    with contextlib.ExitStack() as undo:
-        for (o, a), fn in zip(saved, originals):
-            # an inherited method (Tensor.cpu) is restored by deleting
-            # the override
-            undo.callback(*((setattr, o, a, fn) if a in vars(o)
-                            else (delattr, o, a)))
-        native.parse_fasta_codes = timed("parse", originals[0])
-        setattr(flush_graph, flush, timed("flush", originals[1]))
-        torch.Tensor.cpu = timed("read_back", originals[2])
-        payload.compact = timed("compact", originals[3])
-        windows.WindowPacker.pack = timed_pack(originals[4])
+    spans.clear()
+    with spans.recording():
         insert_s, idx = insert()
+    recs = spans.records()
+    spans.clear()
     row = dict(stage="insert_breakdown", which=which, path=path,
                insert_untimed_s=untimed_s, insert_s=insert_s,
                n_emitted=idx.n_emitted)
-    for key in ("parse", "pack", "flush", "read_back", "compact"):
-        n, s = spent.get(key, (0, 0.0))
-        row[f"{key}_s"], row[f"{key}_calls"] = s, n
-    row["rest_s"] = insert_s - sum(row[f"{key}_s"] for key in (
-        "parse", "pack", "flush", "read_back", "compact"))
+    keys = dict(parse="parse", pack="pack", flush="flush",
+                read_back="readback", compact="compact")
+    for key, name in keys.items():
+        own = [ns for r, ns in zip(recs, spans.self_ns(recs))
+               if r.name == name and r.kind != "call"]
+        row[f"{key}_s"], row[f"{key}_calls"] = sum(own) / 1e9, len(own)
+    row["rest_s"] = insert_s - sum(row[f"{key}_s"] for key in keys)
     return row
 
 
