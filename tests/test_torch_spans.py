@@ -6,8 +6,11 @@ k=31 (with mid-ingest segments) and k=63 yields the expected span paths,
 one flush span per flush; the list is capped; a thread takes its
 starter's state through context() / adopt(); trace_insert's
 insert_breakdown reads the spans, keeps its row's keys and patches
-nothing."""
+nothing; the parse's byte ranges are `parse.range` spans on worker
+threads, which the benchmark's parse_ranges reader counts."""
 
+import os
+import sys
 import threading
 
 import pytest
@@ -229,3 +232,63 @@ def test_insert_breakdown_reads_spans_and_patches_nothing(tmp_path,
     assert row["parse_calls"] == 1 and row["read_back_calls"] > 0
     assert 0 < row["flush_s"] <= row["insert_s"]
     assert spans.records() == []
+
+
+def test_parse_ranges_on_their_own_threads(tmp_path, monkeypatch):
+    """A parse above the minimum range records one `parse.range` span a
+    range, each on a worker thread under the `parse` span's path; the
+    parse span's own time stays its whole length."""
+    monkeypatch.setattr(native.os, "sched_getaffinity",
+                        lambda pid: set(range(4)))
+    path = tmp_path / "big.fa"
+    line = b"ACGTTGCAAC" * 8 + b"\n"
+    n_lines = (3 * native.MIN_RANGE) // len(line) + 1000
+    with open(path, "wb") as f:
+        f.write(b">a\n" + line * (n_lines // 2) + b">b\n"
+                + line * (n_lines - n_lines // 2))
+    br = Brisk(Parameters(31, 11, 8), batch=32, window=64, stack=2,
+               device="cpu")
+    spans.clear()
+    with spans.recording():
+        with spans.call("insert_file"):
+            chunks = list(br._records(str(path)))
+    recs = spans.records()
+    spans.clear()
+    assert [len(c) for c in chunks] == [80 * (n_lines // 2),
+                                        80 * (n_lines - n_lines // 2)]
+    (parse,) = [r for r in recs if r.name == "parse"]
+    ranges = [r for r in recs if r.name == "parse.range"]
+    assert len(ranges) == native._n_ranges(path.stat().st_size) == 3
+    assert {r.parent for r in ranges} == {"insert_file/parse"}
+    assert parse.thread not in {r.thread for r in ranges}
+    assert len({r.thread for r in ranges}) == len(ranges)
+    assert all(parse.start_ns <= r.start_ns <= r.end_ns <= parse.end_ns
+               for r in ranges)
+    own = dict(zip(recs, spans.self_ns(recs)))
+    assert own[parse] == parse.end_ns - parse.start_ns
+
+
+def test_parse_ranges_reader_on_a_recorded_job(profiled, monkeypatch):
+    """benchmark/metrics/parse_ranges.py on the profiled count job: the
+    build's insert_file parsed data/test.fa in one range (the query's
+    shadow insert's range is not counted); without the span, nothing."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmark import program_spans, run
+    _, recs, _, _, _ = profiled
+    ranges = [r for r in recs if r.name == "parse.range"]
+    assert sorted(r.parent for r in ranges) == [
+        "insert_file/parse", "query_file/insert_file/parse"]
+    # the trace's CPU ranges are the list's own, on the same clock
+    record = dict(
+        spans={"job": (min(r.start_ns for r in recs) / 1e3,
+                       max(r.end_ns for r in recs) / 1e3)},
+        cpu=[(spans.PREFIX + r.name, r.start_ns / 1e3, r.end_ns / 1e3)
+             for r in recs if r.kind == "range"])
+    read = run.Cell(root, "k31-chr1-count").reader("parse_ranges")
+    monkeypatch.setattr(program_spans, "records", lambda: recs)
+    assert read(record) == 1
+    monkeypatch.setattr(program_spans, "records", lambda: [
+        r for r in recs if r.name != "parse.range"])
+    assert read(record) is None
