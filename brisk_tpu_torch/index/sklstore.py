@@ -933,15 +933,19 @@ def query_join_total(state: SklState, qstate_box: list,
 
 def query_join_keys_total(state: SklState, qk: torch.Tensor,
                           qlive: torch.Tensor, k: int, m: int, b: int,
-                          chunk: int = 1 << 26) -> int:
+                          chunk: int = 1 << 26, regroup=None) -> int:
     """Total stored count over a batch of query PACKED KEYS against a
     FINALIZED arena — the shadow-index-free query: the caller enumerates
     the query straight to packed keys, no second arena is built. qk (W,
     Sq) int32 (u32 bit patterns) on the arena's device, qlive (Sq,) bool.
     Chunked over the query slots at a bounded set of widths, each chunk
-    padded with INVALID keys, to bound peak device memory."""
+    padded with INVALID keys, to bound peak device memory. regroup, if
+    given, maps the arena's expansion (keys, counts) to the entries to
+    join instead (equal keys among them are summed before the wrap)."""
     with spans.span("join.expand"):
         ik, icnt = expand_for_join(state, k, m, b)
+        if regroup is not None:
+            ik, icnt = regroup(ik, icnt)
     Sq = qk.shape[1]
     CQ = min(_shape_family(max(Sq, 1)), chunk)
     total = 0

@@ -105,6 +105,18 @@ def make_keys(bucket, key_limbs, mini_idx, k: int, b: int) -> torch.Tensor:
     return torch.stack(make_key_words(bucket, key_limbs, mini_idx, k, b))
 
 
+def bucket_of(rows: torch.Tensor, k: int, b: int) -> torch.Tensor:
+    """The bucket id of packed key rows (W, N), int32 bit patterns or
+    int64 u32, as (N,) int64."""
+    W = rows.shape[0]
+    w, bit = divmod(8 + 2 * k, 32)  # little-endian word/bit of bucket LSB
+    le = [to_u32(rows[W - 1 - i]) for i in range(W)]
+    v = le[w] >> bit
+    if bit and w + 1 < W:
+        v = v | ((le[w + 1] << (32 - bit)) & M32)
+    return v & ((1 << (2 * b)) - 1)
+
+
 def pack_key_np(bucket: int, hashed_kmer: int, mini_idx: int, k: int,
                 b: int) -> np.ndarray:
     """Host-side single-key packing (for scalar queries/tests)."""

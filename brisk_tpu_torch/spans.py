@@ -49,7 +49,9 @@ _dropped = [0]
 class Span(NamedTuple):
     name: str
     parent: str     # "/"-joined names of the spans open around it
-    thread: int     # threading.get_ident() of the thread it ran on
+    # the OS thread id: threading.get_ident()'s values are reused as soon
+    # as a thread exits, so two short-lived threads could read as one
+    thread: int     # threading.get_native_id() of the thread it ran on
     start_ns: int   # time.time_ns()
     end_ns: int
     kind: str       # "call", "range" (also a profiler range) or "leaf"
@@ -81,7 +83,7 @@ class _Open:
         _local.path = self.parent
         if len(_records) < CAP:
             _records.append(Span(self.name, "/".join(self.parent),
-                                 threading.get_ident(), self.t0, t1,
+                                 threading.get_native_id(), self.t0, t1,
                                  self.kind))
         else:
             _dropped[0] += 1

@@ -7,7 +7,10 @@ one flush span per flush; the list is capped; a thread takes its
 starter's state through context() / adopt(); trace_insert's
 insert_breakdown reads the spans, keeps its row's keys and patches
 nothing; the parse's byte ranges are `parse.range` spans on worker
-threads, which the benchmark's parse_ranges reader counts."""
+threads, which the benchmark's parse_ranges reader counts; the sharded
+job (ShardedBrisk's insert_file, finalize and query_file) yields its
+calls, its leaves under them and its own leaves (deliver, shard.stack,
+query.enumerate) where they run."""
 
 import os
 import sys
@@ -20,6 +23,7 @@ from torch.profiler import ProfilerActivity, profile
 from brisk_tpu_torch import bench, native, spans, trace_insert
 from brisk_tpu_torch.api import Brisk
 from brisk_tpu_torch.index import flush_graph
+from brisk_tpu_torch.parallel.facade import ShardedBrisk
 from brisk_tpu_torch.params import Parameters
 
 torch.set_num_threads(2)
@@ -109,7 +113,7 @@ def test_off_records_nothing_and_opens_no_range(monkeypatch):
 def test_profiled_leaves_are_ranges_and_producer_packs(profiled):
     _, recs, ranges, _, total = profiled
     assert total > 0
-    main = threading.get_ident()
+    main = threading.get_native_id()
     on_main = [r for r in recs if r.thread == main and r.kind != "call"]
     assert on_main and {r.kind for r in on_main} == {"range"}
     # every leaf on the profiled thread is a range in the trace
@@ -187,7 +191,7 @@ def test_context_and_adopt():
     def worker(ctx):
         spans.adopt(ctx)
         with spans.span("inner"):
-            got.append(threading.get_ident())
+            got.append(threading.get_native_id())
 
     with spans.recording():
         with spans.call("outer"):
@@ -292,3 +296,37 @@ def test_parse_ranges_reader_on_a_recorded_job(profiled, monkeypatch):
     monkeypatch.setattr(program_spans, "records", lambda: [
         r for r in recs if r.name != "parse.range"])
     assert read(record) is None
+
+
+def test_sharded_job_paths(tmp_path):
+    """ShardedBrisk -> insert_file / finalize / query_file on an input
+    whose windows need repairs (so their rows are delivered): one
+    `finalize` leaf a shard and one `shard.stack` under the finalize
+    call; query_file's own finalize (nothing left to do) opens no call."""
+    from tests.test_torch_api import _repair_fixture
+    path = _repair_fixture(tmp_path / "repair.fa")
+    sb = ShardedBrisk(Parameters(31, 11, 8), n_devices=8, batch_per_shard=8,
+                      window=64, stack=2, device="cpu")
+    spans.clear()
+    with spans.recording():
+        sb.insert_file(path)
+        sb.finalize()
+        total = sb.query_file(path)
+    recs = spans.records()
+    spans.clear()
+    assert total > 0 and sb.n_repaired_windows > 0
+    want = {"insert_file", "insert_file/parse", "insert_file/pack",
+            "insert_file/flush", "insert_file/readback",
+            "insert_file/repair", "insert_file/deliver", "finalize",
+            "finalize/finalize", "finalize/shard.stack", "query_file",
+            "query_file/query.enumerate", "query_file/join.expand",
+            "query_file/join.merge"}
+    assert want <= paths(recs)
+    assert {r.name for r in recs if r.kind == "call"} == {
+        "insert_file", "finalize", "query_file"}
+    assert sum(r.kind == "call" for r in recs) == 3
+    under = [r.name for r in recs if r.parent == "finalize"]
+    assert under.count("finalize") == 8 and under.count("shard.stack") == 1
+    assert sum(r.name == "join.expand" for r in recs) == 8
+    assert sum(r.name == "flush" for r in recs) == sum(
+        r.name == "readback" for r in recs)
