@@ -39,6 +39,7 @@ are host rates.
 """
 
 import argparse
+import itertools
 import json
 import os
 import resource
@@ -403,15 +404,14 @@ def sharded_overhead(dev: torch.device, k: int = 31, m: int = 11,
     rng = np.random.default_rng(7)
     rec_len = (steps + 1) * stack * batch * packer.useful + packer.l_buf
     rec = rng.integers(0, 4, rec_len, dtype=np.uint8)
-    batches = list(packer.pack(iter([rec])))
-    stacks = [batches[i:i + stack]
-              for i in range(0, (steps + 1) * stack, stack)]
+    stacks = list(itertools.islice(packer.record_stacks([rec], stack),
+                                   steps + 1))
     out = {}
     for n in shards:
         sb = ShardedBrisk(Parameters(k, m, b), n_devices=n,
                           batch_per_shard=batch // n, window=window,
                           stack=stack, device=dev)
-        # the state ShardedBrisk._insert_windowed sets up for its steps
+        # the state ShardedBrisk._insert_codes sets up for its steps
         sb._prev_tail = None
         sb._chain = pipeline.zero_chain(sb.device)
         times = []

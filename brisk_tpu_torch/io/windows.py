@@ -72,7 +72,9 @@ def unpack4(packed: np.ndarray, l: int) -> np.ndarray:
 
 @dataclass
 class WinBatch:
-    codes4: np.ndarray       # (B, l_buf4) uint8, 4 bases/byte
+    codes4: np.ndarray       # (B, l_buf4) uint8, 4 bases/byte; None in
+    #                          pack_stacks' batches, which hold only the
+    #                          unpacked codes (_codes, a row of the stack)
     valid_start: np.ndarray  # (B,) int32: first valid emission position
     valid_end: np.ndarray    # (B,) int32: one past last valid position
     n_kmers: int             # total valid emissions in this batch
@@ -91,6 +93,19 @@ class WinBatch:
             l = self.l_buf or self.codes4.shape[-1] * 4
             self._codes = unpack4(self.codes4, l)
         return self._codes
+
+
+def code_buffer(records) -> tuple:
+    """Records (ACGT strings or uint8 code arrays) in one uint8 code
+    buffer: (codes, offs), record i at codes[offs[i]:offs[i + 1]] (offs
+    int64), a string coded as `WindowPacker.pack` codes it."""
+    parts = [(np.frombuffer(r.encode(), np.uint8) >> 1) & np.uint8(3)
+             if isinstance(r, str) else np.asarray(r, np.uint8)
+             for r in records]
+    offs = np.zeros(len(parts) + 1, np.int64)
+    np.cumsum([len(c) for c in parts], out=offs[1:])
+    codes = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+    return codes, offs
 
 
 def default_warmup(k: int, m: int) -> int:
@@ -133,6 +148,29 @@ class FlatFlush:
             self._codes = np.lib.stride_tricks.sliding_window_view(
                 flat, self.l_buf)[::self.useful][:sb]
         return self._codes
+
+
+@dataclass
+class WindowTable:
+    """Every window of records that lie in one code buffer, in the lane
+    order of `WindowPacker.pack` (records of >= k bases only)."""
+    start: np.ndarray        # (W,) int64: the window's first base in the buffer
+    valid_start: np.ndarray  # (W,) int32
+    valid_end: np.ndarray    # (W,) int32
+    rec: np.ndarray          # (W,) int64: record serial (records >= k)
+    win: np.ndarray          # (W,) int32: window index within the record
+
+
+@dataclass
+class WinStack:
+    """`stack` window batches laid out together: the three arrays the
+    sharded step takes, and the batches as views of their rows (lanes
+    past the last window empty, as `pack`'s last batch and the stack's
+    padding batches have them)."""
+    codes: np.ndarray        # (S, B, l_buf) uint8 unpacked codes
+    valid_start: np.ndarray  # (S, B) int32
+    valid_end: np.ndarray    # (S, B) int32
+    batches: list            # S WinBatch whose codes are rows of `codes`
 
 
 class WindowPacker:
@@ -322,3 +360,79 @@ class WindowPacker:
             yield WinBatch(codes4, vs, ve,
                            int(np.sum(np.maximum(ve - vs, 0))),
                            n_records, rid, wid, self.l_buf)
+
+    def window_table(self, starts: np.ndarray,
+                     lengths: np.ndarray) -> WindowTable:
+        """The windows of the records at buffer offsets `starts` with
+        `lengths` bases, in one vectorised pass: as `record_windows` lays
+        out each record and `pack` numbers them."""
+        keep = np.asarray(lengths) >= self.k
+        first = np.asarray(starts, np.int64)[keep]
+        n = np.asarray(lengths, np.int64)[keep]
+        n_k = n - self.margin
+        n_win = np.where(n_k <= self.l_out, 1,
+                         1 + -(-(n_k - self.l_out) // self.useful))
+        rec = np.repeat(np.arange(len(n), dtype=np.int64), n_win)
+        win = (np.arange(int(n_win.sum()), dtype=np.int64)
+               - np.repeat(np.cumsum(n_win) - n_win, n_win))
+        off = win * self.useful
+        valid_start = np.where(win == 0, self.margin,
+                               self.margin + self.warmup).astype(np.int32)
+        valid_end = np.minimum(n[rec] - off, self.l_buf).astype(np.int32)
+        return WindowTable(first[rec] + off, valid_start, valid_end, rec,
+                           win.astype(np.int32))
+
+    def pack_stacks(self, buf: np.ndarray, table: WindowTable,
+                    stack: int, n_stacks: int = 0) -> Iterator[WinStack]:
+        """`table`'s windows as stacks of `stack` batches of unpacked
+        codes, gathered from `buf` one stack at a time: each lane's row
+        is `buf[start:start + l_buf]` with zeros from its valid_end on,
+        where the record ends. Equal, batch for batch, to what `pack`
+        gives for the same records, and after its last batch to the
+        empty batches that pad a stack, without packing a base. Empty
+        stacks follow until there are `n_stacks` in all."""
+        B, L = self.batch, self.l_buf
+        SB = stack * B
+        last = len(buf) - L  # the last start of a whole row of buf
+        rows = np.lib.stride_tricks.sliding_window_view(
+            buf if last >= 0 else np.pad(buf, (0, -last)), L)
+        cols = np.arange(L, dtype=np.int32)
+        for lo in range(0, max(len(table.start), n_stacks * SB), SB):
+            start = table.start[lo:lo + SB]
+            n = len(start)
+            # one gather into a fresh array (a second would double the
+            # stack's page faults); the lanes past the last window zeroed
+            at = np.zeros(SB, np.int64)
+            at[:n] = np.minimum(start, max(last, 0))
+            codes = rows[at]
+            codes[n:] = 0
+            for j in np.nonzero(start > last)[0]:  # rows past buf's end
+                codes[j, :len(buf) - start[j]] = buf[start[j]:]
+            vs = np.zeros(SB, np.int32)
+            ve = np.zeros(SB, np.int32)
+            rec = np.full(SB, -1, np.int64)
+            win = np.zeros(SB, np.int32)
+            vs[:n] = table.valid_start[lo:lo + SB]
+            ve[:n] = table.valid_end[lo:lo + SB]
+            rec[:n] = table.rec[lo:lo + SB]
+            win[:n] = table.win[lo:lo + SB]
+            ends = np.nonzero(ve[:n] < L)[0]  # each record's last window
+            tail = codes[ends]
+            tail[cols >= ve[ends, None]] = 0
+            codes[ends] = tail
+            codes = codes.reshape(stack, B, L)
+            vs, ve = vs.reshape(stack, B), ve.reshape(stack, B)
+            rec, win = rec.reshape(stack, B), win.reshape(stack, B)
+            n_kmers = np.maximum(ve - vs, 0).sum(axis=1)
+            n_records = ((win == 0) & (rec >= 0)).sum(axis=1)
+            yield WinStack(codes, vs, ve, [
+                WinBatch(None, vs[s], ve[s], int(n_kmers[s]),
+                         int(n_records[s]), rec[s], win[s], L,
+                         _codes=codes[s])
+                for s in range(stack)])
+
+    def record_stacks(self, records, stack: int) -> Iterator[WinStack]:
+        """`pack_stacks` of records (ACGT strings or uint8 code arrays)."""
+        codes, offs = code_buffer(records)
+        return self.pack_stacks(
+            codes, self.window_table(offs[:-1], np.diff(offs)), stack)

@@ -164,9 +164,11 @@ def _feed(lib, readinto, buf, at: int = 0):
         lib.brisk_fasta_free(h)
 
 
-def _parse(path: str, n_ranges: int = None):
-    """(chunks, ranges parsed); None if the native lib is unavailable.
-    `n_ranges` forces the number of ranges of an uncompressed file."""
+def _parse_buffer(path: str, n_ranges: int = None):
+    """(codes, offs, ranges parsed): every chunk's codes in one buffer,
+    chunk i at codes[offs[i]:offs[i + 1]] (offs int64, no empty chunk);
+    None if the native lib is unavailable. `n_ranges` forces the number
+    of ranges of an uncompressed file."""
     lib = load()
     if lib is None:
         return None
@@ -222,9 +224,27 @@ def _parse(path: str, n_ranges: int = None):
         total += n
     offs = np.concatenate([np.zeros(1, np.uint64), *splits,
                            np.full(1, total, np.uint64)])
-    offs = offs[np.concatenate(([True], offs[1:] != offs[:-1]))].tolist()
-    codes = buf[:total]
-    return [codes[a:b] for a, b in zip(offs, offs[1:])], len(ranges)
+    offs = offs[np.concatenate(([True], offs[1:] != offs[:-1]))]
+    return buf[:total], offs.astype(np.int64), len(ranges)
+
+
+def _parse(path: str, n_ranges: int = None):
+    """(chunks, ranges parsed); None if the native lib is unavailable.
+    `n_ranges` forces the number of ranges of an uncompressed file."""
+    got = _parse_buffer(path, n_ranges)
+    if got is None:
+        return None
+    codes, offs, n = got
+    offs = offs.tolist()
+    return [codes[a:b] for a, b in zip(offs, offs[1:])], n
+
+
+def parse_fasta_buffer(path: str):
+    """Parse a FASTA file natively: (codes, offs), every cleaned chunk's
+    uint8 codes in one buffer, chunk i at codes[offs[i]:offs[i + 1]]; or
+    None if the native lib is unavailable."""
+    got = _parse_buffer(path)
+    return None if got is None else got[:2]
 
 
 def parse_fasta_codes(path: str):

@@ -139,89 +139,57 @@ class ShardedBrisk:
     # -- insertion ---------------------------------------------------------
 
     def insert_file(self, path: str) -> None:
+        from brisk_tpu_torch import native
         with spans.call("insert_file"):
-            records = self._records(path)
-            if self.multihost:
-                # every process reads the (shared) file; round-robin record
-                # ownership; each packs only its own lanes
-                records = [r for i, r in enumerate(records)
-                           if i % self.n_proc == self.pid]
-            self._insert_windowed(iter(records) if isinstance(records, list)
-                                  else records)
+            with spans.span("parse"):
+                parsed = native.parse_fasta_buffer(path)
+                if parsed is None:  # no native lib: the Python parser
+                    parsed = windows.code_buffer(
+                        pyref.read_fasta_chunks(path))
+            self._insert_codes(*parsed)
 
     def insert_sequence(self, seq: str) -> None:
-        if self.multihost and self.pid != 0:
-            seq = ""  # a single sequence is owned by process 0
-        self._insert_windowed(iter([seq] if seq else []))
+        # one record: process 0's across processes
+        self._insert_codes(*windows.code_buffer([seq]))
 
-    def _records(self, path: str):
-        from brisk_tpu_torch import native
-        with spans.span("parse"):
-            chunks = native.parse_fasta_codes(path)
-            if chunks is not None:
-                return iter(chunks)
-            return pyref.read_fasta_chunks(path)
-
-    def _insert_windowed(self, records) -> None:
-        """Pack this process's records into window stacks and flush them.
-        Across processes the flush count is synchronized (process_max),
-        and a process that runs out of data pads with empty flushes, so
-        the collectives run in lockstep."""
+    def _insert_codes(self, codes: np.ndarray, offs: np.ndarray) -> None:
+        """Insert the records of one code buffer (record i at
+        codes[offs[i]:offs[i + 1]]): one window table of them, then each
+        stack of window batches gathered from the buffer (io.windows
+        pack_stacks) and flushed. Across processes each process takes
+        every n_proc-th record (every process reads the shared file),
+        the flush count is synchronized (process_max), and a process
+        that runs out of data pads with empty stacks, so the collectives
+        run in lockstep."""
         p = self.params
-        my_B = self.my_lanes
-        packer = windows.WindowPacker(p.k, p.m, my_B, l_out=self.window)
+        packer = windows.WindowPacker(p.k, p.m, self.my_lanes,
+                                      l_out=self.window)
+        S = self.stack
+        with spans.span("pack"):
+            starts, lengths = offs[:-1], np.diff(offs)
+            if self.multihost:
+                mine = np.arange(len(starts)) % self.n_proc == self.pid
+                starts, lengths = starts[mine], lengths[mine]
+            table = packer.window_table(starts, lengths)
+        n_stacks = 0
+        if self.multihost:
+            n_stacks = multihost.process_max(
+                -(-len(table.start) // (S * self.my_lanes)), self.mesh)
         self._prev_tail = None
         self._chain = pipeline.zero_chain(self.device)
-        S = self.stack
+        for st in spans.iterate("pack", packer.pack_stacks(codes, table, S,
+                                                           n_stacks)):
+            self._flush_stack(packer, st)
 
-        def empty_batch():
-            return windows.WinBatch(
-                np.zeros((my_B, packer.l_buf4), np.uint8),
-                np.zeros(my_B, np.int32), np.zeros(my_B, np.int32), 0, 0,
-                np.full(my_B, -1, np.int64), np.zeros(my_B, np.int32),
-                packer.l_buf)
-
-        n_flushes_target = None
-        if self.multihost:
-            records = [r for r in records if len(r) >= p.k]
-            n_win = 0
-            for r in records:
-                n_k = len(r) - packer.margin
-                n_win += 1 if n_k <= packer.l_out else \
-                    1 + -(-(n_k - packer.l_out) // packer.useful)
-            my_flushes = -(-(-(-n_win // my_B)) // S) if n_win else 0
-            n_flushes_target = multihost.process_max(my_flushes, self.mesh)
-            records = iter(records)
-
-        n_flushed = 0
-        pending = []
-        for bt in spans.iterate("pack", packer.pack(records)):
-            pending.append(bt)
-            if len(pending) == S:
-                self._flush_stack(packer, pending)
-                n_flushed += 1
-                pending = []
-        if pending:
-            while len(pending) < S:  # pad to the stack shape
-                pending.append(empty_batch())
-            self._flush_stack(packer, pending)
-            n_flushed += 1
-        # lockstep padding: processes that ran out of data keep issuing
-        # empty flushes until every process has flushed the same count
-        while n_flushes_target is not None and n_flushed < n_flushes_target:
-            self._flush_stack(packer, [empty_batch() for _ in range(S)])
-            n_flushed += 1
-
-    def _stage(self, batches) -> tuple:
+    def _stage(self, st: windows.WinStack) -> tuple:
         """A stack's inputs of the sharded step on the device: (codes (S,
         B, L_buf), valid_start, valid_end)."""
-        return tuple(torch.from_numpy(np.stack([getattr(bt, f)
-                                                for bt in batches])
-                                      ).to(self.device)
-                     for f in ("codes", "valid_start", "valid_end"))
+        return tuple(torch.from_numpy(x).to(self.device)
+                     for x in (st.codes, st.valid_start, st.valid_end))
 
-    def _flush_stack(self, packer, batches) -> None:
+    def _flush_stack(self, packer, st: windows.WinStack) -> None:
         p = self.params
+        batches = st.batches
         S = len(batches)
         B = self.my_lanes
         per_flush = S * (self.n_shards * self.skl_route_cap
@@ -233,7 +201,7 @@ class ShardedBrisk:
         step = (flush_graph.insert_sharded if self.mesh.group is None
                 else sharded.sharded_insert_windows_sklonly)
         with spans.span("pack"):
-            staged = self._stage(batches)
+            staged = self._stage(st)
         with spans.span("flush"):
             (self.skl, n_sk, n_km, n_sp, cert, ends, ovf,
              self._chain) = step(

@@ -70,6 +70,7 @@ program in turns (insert_turns).
 """
 
 import argparse
+import itertools
 import json
 import os
 import sys
@@ -439,7 +440,11 @@ def sharded_stacks(dev: torch.device, path: str, n: int, k: int = 31,
     sb = ShardedBrisk(Parameters(k, m, b), device=dev,
                       **dict(SHARDED_GEOMETRY, **geo))
     packer = windows.WindowPacker(k, m, sb.B, l_out=sb.window)
-    stacks = _first_stacks(packer, path, sb.stack, n, sb._stage)
+    laid = list(itertools.islice(
+        packer.record_stacks(_parsed(path), sb.stack), n))
+    if len(laid) < n or laid[-1].batches[-1].rec[-1] < 0:
+        raise ValueError(f"{path} lays out fewer than {n} full stacks")
+    stacks = [sb._stage(st) for st in laid]
     per_step = sb.stack * (sb.n_shards * sb.skl_route_cap
                            + sb.B_local * sb.skl_row_cap)
     return (sb, stacks, (k, m, b, sb.mesh, sb.skl_row_cap,
@@ -519,7 +524,8 @@ def insert_breakdown(dev: torch.device, path: str, which: str) -> dict:
     after a warm-up insert (the graph captured), one insert untimed, then
     one under spans.recording(), whose spans give the own seconds and
     the count of the native parse, the packing (`pack_calls`: each next()
-    of WindowPacker.pack, the one that finds it exhausted too, and each
+    of WindowPacker.pack, or for ShardedBrisk the window table and each
+    next() of its stacks, the one that finds it exhausted too, and each
     stack's staging copies), the flushes (the graph replay and the
     appends), the read-backs to the host (a flush's outputs, a repair's
     end states) and the payload compactions; `rest_s` is the insert less

@@ -1335,9 +1335,11 @@ def _sharded_program(device, n: int, S: int = 2, route_cap: int = 2):
     sb = ShardedBrisk(Parameters(31, 11, 8), n_devices=8, batch_per_shard=16,
                       window=128, stack=S, skl_route_cap=route_cap,
                       device=device)
-    batches, _ = _window_batches(sb.B, sb.window)
-    assert len(batches) >= n * S
-    stacks = [sb._stage(batches[i:i + S]) for i in range(0, n * S, S)]
+    from brisk_tpu_torch.io import windows
+    packer = windows.WindowPacker(31, 11, sb.B, l_out=sb.window)
+    laid = list(packer.record_stacks(_graph_records(), S))
+    assert laid[n - 1].batches[-1].rec[-1] >= 0  # n full stacks
+    stacks = [sb._stage(st) for st in laid[:n]]
     tail = (31, 11, 8, sb.mesh, sb.skl_row_cap, route_cap)
 
     def room(skl, i):

@@ -52,6 +52,79 @@ def test_pack_flat_matches(path):
         assert (a.n_kmers, a.n_records) == (b.n_kmers, b.n_records)
 
 
+def _bulk_lengths(case, packer):
+    """Record lengths of a case of test_pack_stacks_matches."""
+    k, lb, u = packer.k, packer.l_buf, packer.useful
+    return {
+        "short_records": [k - 1, 200, 3, k + 5, k - 2, 450, 1],
+        "one_window": [k, lb, lb + 1, k],  # exactly k; exactly one window
+        "record_ends": [lb + u, lb + 2 * u, lb + u // 2, lb + 3 * u + 1],
+        "partial_batch": [lb + 2 * u],
+        "whole_stacks": [lb + 3 * u] * 8,  # 4 windows each
+        "strings": [lb + u, k - 1, 2 * lb, k + 3],
+    }[case]
+
+
+@pytest.mark.parametrize("k,m,l_out", [(31, 15, 64), (63, 21, 128)])
+@pytest.mark.parametrize("case", ["short_records", "one_window",
+                                  "record_ends", "partial_batch",
+                                  "whole_stacks", "native_parse",
+                                  "strings"])
+def test_pack_stacks_matches(case, k, m, l_out):
+    """The bulk layout (window_table, then pack_stacks from one code
+    buffer) equals brisk_tpu's WindowPacker.pack batch for batch, and its
+    padding batches, and the empty stack asked for after them, are
+    empty, at batch 8 and stack 2. ACGT strings go into the buffer
+    through code_buffer."""
+    B, S = 8, 2
+    tp = t_windows.WindowPacker(k, m, B, l_out=l_out)
+    if case == "native_parse":
+        buf, offs = t_native.parse_fasta_buffer(FASTAS[1])
+        recs = j_native.parse_fasta_codes(FASTAS[1])
+    elif case == "strings":
+        rng = np.random.default_rng(k)
+        recs = ["".join(rng.choice(list("ACGTacgt"), n))
+                for n in _bulk_lengths(case, tp)]
+        buf, offs = t_windows.code_buffer(recs)
+    else:
+        lengths = _bulk_lengths(case, tp)
+        rng = np.random.default_rng(len(case) + k)
+        buf = rng.integers(0, 4, sum(lengths), dtype=np.uint8)
+        offs = np.concatenate([[0], np.cumsum(lengths)])
+        recs = [buf[a:b].copy() for a, b in zip(offs, offs[1:])]
+    assert [len(r) for r in recs] == np.diff(offs).tolist()
+    want = list(j_windows.WindowPacker(k, m, B, l_out=l_out).pack(iter(recs)))
+    table = tp.window_table(offs[:-1], np.diff(offs))
+    n_stacks = -(-len(want) // S) + 1
+    stacks = list(tp.pack_stacks(buf, table, S, n_stacks))
+    got = [bt for st in stacks for bt in st.batches]
+    n_win = sum(int((bt.rec >= 0).sum()) for bt in want)
+    assert len(table.start) == n_win
+    assert len(got) == n_stacks * S and len(want) > 0
+    if case == "partial_batch":
+        assert n_win % B and len(want) % S
+    if case == "whole_stacks":
+        assert n_win % (S * B) == 0
+    for i, bt in enumerate(got):
+        if i < len(want):
+            w = want[i]
+            np.testing.assert_array_equal(bt.codes, w.codes)
+            for f in ("valid_start", "valid_end", "rec", "win"):
+                np.testing.assert_array_equal(getattr(bt, f), getattr(w, f),
+                                              err_msg=f)
+            assert (bt.n_kmers, bt.n_records) == (w.n_kmers, w.n_records)
+        else:  # the stacks' padding, as pack's empty lanes
+            assert not (bt.codes.any() or bt.valid_start.any()
+                        or bt.valid_end.any() or bt.win.any())
+            assert (bt.rec == -1).all() and bt.n_kmers == bt.n_records == 0
+    for st in stacks:  # the arrays the sharded step takes
+        assert st.codes.shape == (S, B, tp.l_buf)
+        for f in ("codes", "valid_start", "valid_end"):
+            np.testing.assert_array_equal(
+                getattr(st, f), np.stack([getattr(bt, f)
+                                          for bt in st.batches]))
+
+
 @pytest.mark.parametrize("k,m,b", [(31, 11, 8), (63, 21, 14)])
 def test_key_batch_matches(k, m, b):
     rng = np.random.default_rng(k)
